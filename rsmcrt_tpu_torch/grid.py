@@ -1,0 +1,105 @@
+"""Uniform cartesian tally grid (port of ``rsmcrt_tpu/grid.py``).
+
+Voxel lookup and wall distances are closed-form.  The grid keeps its half
+extents as float32-rounded Python floats and caches the derived per-axis
+tensors (half extent, voxel size, counts) on its device, so the transport
+loop does not rebuild them every call.  Derived scalars are computed in
+float32 arithmetic, as the JAX package computes them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+
+def f32(x) -> float:
+    """``x`` rounded to float32, as a Python float (exact in a float32
+    tensor op)."""
+    return float(np.float32(x))
+
+
+@dataclass
+class CartGrid:
+    """Uniform cartesian grid, half extents (xmax, ymax, zmax), voxel counts
+    (nxg, nyg, nzg) (reference: src/grid.f90:14-29)."""
+
+    xmax: float
+    ymax: float
+    zmax: float
+    nxg: int
+    nyg: int
+    nzg: int
+    device: torch.device = torch.device("cpu")
+    half_extent: torch.Tensor = field(init=False, repr=False)
+    voxel_size: torch.Tensor = field(init=False, repr=False)
+    n_counts: torch.Tensor = field(init=False, repr=False)
+    _counts_f: torch.Tensor = field(init=False, repr=False)
+    _two_half: torch.Tensor = field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.xmax, self.ymax, self.zmax = (
+            f32(self.xmax), f32(self.ymax), f32(self.zmax))
+        self.nxg, self.nyg, self.nzg = (
+            int(self.nxg), int(self.nyg), int(self.nzg))
+        self.device = torch.device(self.device)
+        half = np.asarray([self.xmax, self.ymax, self.zmax], np.float32)
+        counts = np.asarray(self.shape, np.int32)
+        dv = np.float32(2.0) * half / counts.astype(np.float32)
+        dev = self.device
+        self.half_extent = torch.as_tensor(half, device=dev)
+        self.voxel_size = torch.as_tensor(dv, device=dev)
+        self.n_counts = torch.as_tensor(counts, device=dev)
+        self._counts_f = torch.as_tensor(counts.astype(np.float32),
+                                         device=dev)
+        self._two_half = torch.as_tensor(np.float32(2.0) * half, device=dev)
+
+    @property
+    def shape(self):
+        return (self.nxg, self.nyg, self.nzg)
+
+    @property
+    def n_cells(self) -> int:
+        return self.nxg * self.nyg * self.nzg
+
+
+def cart_grid(nxg, nyg, nzg, xmax, ymax, zmax, device="cpu") -> CartGrid:
+    return CartGrid(xmax, ymax, zmax, nxg, nyg, nzg, device=device)
+
+
+def get_voxel(grid: CartGrid, pos: torch.Tensor) -> torch.Tensor:
+    """0-based int32 voxel index ``[..., 3]``; -1 on any axis means outside
+    (reference get_voxel_cart, src/grid.f90:51-78)."""
+    counts = grid.n_counts
+    idx = torch.floor(
+        grid._counts_f * (pos + grid.half_extent) / grid._two_half
+    ).to(torch.int32)
+    bad = (idx < 0) | (idx >= counts)
+    return torch.where(bad, -1, idx)
+
+
+def voxel_flat_index(grid: CartGrid, idx: torch.Tensor):
+    """Flatten ``[..., 3]`` voxel indices to int32 ``(x*ny + y)*nz + z``;
+    invalid voxels map to index 0 with a False mask returned alongside."""
+    valid = torch.all(idx >= 0, dim=-1)
+    safe = torch.clamp(idx, min=0)
+    flat = (safe[..., 0] * grid.nyg + safe[..., 1]) * grid.nzg + safe[..., 2]
+    return torch.where(valid, flat, 0), valid
+
+
+def wall_distance(grid: CartGrid, pos: torch.Tensor,
+                  direction: torch.Tensor) -> torch.Tensor:
+    """Distance along ``direction`` to the nearest voxel wall
+    (reference wall_dist, src/inttau2.f90:467-521)."""
+    dv = grid.voxel_size
+    pc = pos + grid.half_extent  # corner-origin coordinates
+    cell = torch.floor(pc / dv)
+    safe_d = torch.where(direction == 0.0, 1.0, direction)
+    d_pos = ((cell + 1.0) * dv - pc) / safe_d
+    d_neg = (cell * dv - pc) / safe_d
+    d = torch.where(direction > 0.0, d_pos,
+                    torch.where(direction < 0.0, d_neg, 1e5))
+    d = torch.clamp(d, min=0.0)
+    return torch.amin(d, dim=-1)
