@@ -19,6 +19,23 @@ Phases (each raises on failure; the exit code is non-zero on any):
    radial fluence within 10%).
 6. the slice at full size: ``kernels.default_MCRT("res/sphere.toml")``,
    1,000,000 photons, 32768 lanes, 200^3 grid, with every deposit counted.
+7. window kernel against plain: ``deposit_window_packed`` against its
+   plain twin on three inputs (the deposit-window tool's workload of
+   524,288 Morton-sorted deposits, phase 3's cloud mix packed and
+   Morton-sorted, and a mix of dead keys, corners, collisions and unsorted
+   rows), in float32 and bfloat16; timed beside its plain twin,
+   ``deposit_add_`` and one ``index_add_`` on the same deposits.
+8. the window path: the deposit-window tool's loop (32 calls of
+   ``deposit_window_packed`` on its workload) with the launches counted.
+9. the detector slice at full size: ``res/validation1.toml`` (van de Hulst
+   slab, pencil beam, two circle detectors) at its 1,000,000 photons
+   through ``kernels.run_MCRT(record_fluence=False)``; Rd and Td gated at
+   the reference's tolerances, the detector dumps written.
+10. the fluenceless bench path: the sphere scene and the bench's circle
+    detector, 32768 lanes, K = 64, 3 in-chain respawns, no fluence and no
+    emission, at 2,000,000 photons (the bench runs 32M).
+11. detectors, card against CPU: ``res/test_dects.toml`` (circle, annulus,
+    camera) cut to 20,000 photons on 64^3 with the fluence estimator on.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -41,7 +58,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SPHERE = ROOT / "res" / "sphere.toml"
 SCAT = ROOT / "res" / "scat_test.toml"
+SLAB = ROOT / "res" / "validation1.toml"
+DECTS = ROOT / "res" / "test_dects.toml"
 N_LANES, K, GRID = 32768, 64, 200
+#: H100 SXM device memory rate, bytes/s (NVIDIA data sheet, 700 W)
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(*args):
@@ -111,6 +132,22 @@ def _mixes(dev, gen):
             "mixed": (mix_idx, mix_val)}
 
 
+def _bound_ms(nbytes: float) -> float:
+    """The least time the card could take to move ``nbytes``."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _library_add(tally, idx, val):
+    """The one PyTorch call that computes the deposit: ``index_add_`` of
+    the positive values into ``tally``, or into a fresh zeroed tally when
+    ``tally`` is the cell count (a yardstick, not used by the port)."""
+    idx_l = idx.long()
+    if isinstance(tally, int):
+        return lambda: torch.zeros(tally, device=idx.device).index_add_(
+            0, idx_l, torch.where(val > 0, val, 0.0))
+    return lambda: tally.index_add_(0, idx_l, torch.where(val > 0, val, 0.0))
+
+
 def _time_ms(fn, reps=20):
     for _ in range(3):
         fn()
@@ -131,7 +168,7 @@ def phase_kernel(dev, card):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     n_cells = GRID ** 3
-    errs, times = {}, {}
+    errs, times, bounds = {}, {}, {}
     for name, (idx, val) in _mixes(dev, gen).items():
         got = dep.deposit_add_(torch.zeros(n_cells, device=dev), idx, val)
         want = dep.deposit_add_plain(torch.zeros(n_cells, device=dev), idx,
@@ -162,15 +199,177 @@ def phase_kernel(dev, card):
         t_kern = _time_ms(lambda: dep.deposit_add_(tally, idx, val))
         t_plain2 = _time_ms(lambda: dep.deposit_add_plain(tally, idx, val))
         t_kern2 = _time_ms(lambda: dep.deposit_add_(tally, idx, val))
-        times[name] = (min(t_kern, t_kern2), min(t_plain, t_plain2))
+        t_lib = min(_time_ms(_library_add(tally, idx, val))
+                    for _ in range(2))
+        times[name] = (min(t_kern, t_kern2), min(t_plain, t_plain2), t_lib)
+        # each deposit's index and value read once, each touched cell
+        # written once
+        touched = int(torch.unique(idx[val > 0]).numel())
+        bounds[name] = _bound_ms(8 * idx.numel() + 4 * touched)
         log(f"[kernel] {name}: {idx.numel()} deposits into {GRID}^3, "
             f"max_abs_err {err:.3e} (max cell {scale:.4g}); kernel "
             f"{t_kern:.4f}/{t_kern2:.4f} ms, plain index_add_ "
-            f"{t_plain:.4f}/{t_plain2:.4f} ms per call [{card}]")
+            f"{t_plain:.4f}/{t_plain2:.4f} ms, one index_add_ call "
+            f"{t_lib:.4f} ms, bound {bounds[name]:.4f} ms ({touched} cells "
+            f"touched) per call [{card}]")
     bad = dep.out_of_range_count(dev)
     if bad != 0:
         raise AssertionError(f"{bad} out-of-range deposits")
-    return errs, times
+    return errs, times, bounds
+
+
+def make_deposits(B=32768, K=16, n=200, sigma=35.0, seed=0):
+    """The deposit-window tool's workload
+    (tools/profile_deposit_window.py): diffusion-ball lanes around the
+    centre, K deposits along each lane's ray, ~60% of them live."""
+    rng = np.random.default_rng(seed)
+    c = n / 2
+    lane = np.clip(rng.normal(c, sigma, (B, 3)), 1, n - 2).astype(np.int32)
+    d = rng.normal(size=(B, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    steps = np.arange(K)
+    vox = np.clip(
+        lane[:, None, :] + np.round(d[:, None, :] * steps[None, :, None]),
+        0, n - 1,
+    ).astype(np.int32)
+    val = rng.uniform(0.001, 0.01, (B, K)).astype(np.float32)
+    val[rng.uniform(size=(B, K)) > 0.6] = 0.0
+    return lane, vox, val
+
+
+def _window_inputs(dev, gen):
+    """``{name: (x, y, z, val)}`` int32/float32 deposit rows on the card,
+    for the window kernel."""
+    from rsmcrt_tpu_torch.transport import deposit as dep
+
+    def t(a, dt=torch.int32):
+        return torch.as_tensor(a, dtype=dt, device=dev)
+
+    out = {}
+    # the tool's workload, lanes sorted by their Morton key
+    lane, vox, val = make_deposits()
+    order = torch.argsort(dep.morton_key_3d(*(t(lane[:, i])
+                                               for i in range(3)))).cpu()
+    vox, val = vox[order.numpy()], val[order.numpy()]
+    out["tool"] = tuple(t(vox[..., i].reshape(-1)) for i in range(3)) + (
+        t(val.reshape(-1), torch.float32),)
+    # phase 3's cloud mix, deposits sorted by their Morton key
+    idx, v = _mixes(dev, gen)["cloud"]
+    x, y, z = idx // (GRID * GRID), (idx // GRID) % GRID, idx % GRID
+    o = torch.argsort(dep.morton_key_3d(x, y, z))
+    out["cloud"] = (x[o], y[o], z[o], v[o])
+    # dead rows (val <= 0, garbage coordinates), corners, one hot voxel,
+    # the rest scattered over the grid in no order
+    n = N_LANES * K
+    xyz = torch.randint(0, GRID, (3, n), generator=gen, device=dev,
+                        dtype=torch.int32)
+    v = torch.rand(n, generator=gen, device=dev)
+    q = n // 8
+    corner = torch.randint(0, 2, (3, q), generator=gen, device=dev,
+                           dtype=torch.int32) * (GRID - 1)
+    xyz[:, :q] = corner
+    xyz[:, q:2 * q] = GRID // 2
+    v[2 * q:4 * q] = -v[2 * q:4 * q] * (torch.arange(2 * q, device=dev) % 2)
+    xyz[0, 2 * q:3 * q] = -7
+    out["mixed"] = (xyz[0], xyz[1], xyz[2], v)
+    return out
+
+
+def phase_window(dev, card):
+    """Window kernel against its plain twin on three inputs, in float32
+    and bfloat16, timed beside the plain twin, ``deposit_add_`` and one
+    ``index_add_`` on the same deposits."""
+    from rsmcrt_tpu_torch.transport import deposit as dep
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    shape = (GRID, GRID, GRID)
+    n_cells = GRID ** 3
+    bad0 = dep.out_of_range_count(dev)
+    rows = {}
+    for name, (x, y, z, val) in _window_inputs(dev, gen).items():
+        keys = dep.pack_deposit_key(x, y, z, val > 0.0)
+        flat = torch.where(val > 0.0, (x * GRID + y) * GRID + z, 0).to(
+            torch.int32)
+        err = {}
+        for dt in (torch.float32, torch.bfloat16):
+            got = dep.deposit_window_packed(shape, keys, val, dot_dtype=dt)
+            want = dep.deposit_window_packed_plain(shape, keys, val, dt)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            # float atomics in a run-dependent order: rtol 1e-4 of the
+            # largest cell
+            if e > 1e-4 * scale:
+                raise AssertionError(f"window {name} {dt}: {e} > 1e-4 * "
+                                     f"{scale}")
+            err[dt] = e
+        n_live = int((val > 0).sum())
+
+        def kern():
+            return dep.deposit_window_packed(shape, keys, val)
+
+        def plain():
+            return dep.deposit_window_packed_plain(shape, keys, val)
+
+        tally = torch.zeros(n_cells, device=dev)
+        t_p1, t_k1, t_k2, t_p2 = (_time_ms(f) for f in
+                                  (plain, kern, kern, plain))
+        t_add = min(_time_ms(lambda: dep.deposit_add_(tally, flat, val))
+                    for _ in range(2))
+        t_lib = min(_time_ms(_library_add(n_cells, flat, val))
+                    for _ in range(2))
+        # keys and values read once, the fresh grid written once
+        bound = _bound_ms(8 * keys.numel() + 4 * n_cells)
+        rows[name] = dict(err=err[torch.float32], ms=min(t_k1, t_k2),
+                          plain_ms=min(t_p1, t_p2), add_ms=t_add,
+                          library_ms=t_lib, bound_ms=bound)
+        log(f"[window] {name}: {keys.numel()} deposits ({n_live} live) "
+            f"into {GRID}^3; max_abs_err f32 {err[torch.float32]:.3e} bf16 "
+            f"{err[torch.bfloat16]:.3e}; kernel {t_k1:.4f}/{t_k2:.4f} ms, "
+            f"plain {t_p1:.4f}/{t_p2:.4f} ms, deposit_add_ {t_add:.4f} ms, "
+            f"one index_add_ call {t_lib:.4f} ms, bound {bound:.4f} ms "
+            f"per call [{card}]")
+    bad = dep.out_of_range_count(dev) - bad0
+    if bad != 0:
+        raise AssertionError(f"window kernel: {bad} out-of-range keys")
+    return rows
+
+
+def phase_window_path(dev, card):
+    """The deposit-window tool's path: its workload, lanes Morton-sorted,
+    packed, and 32 ``deposit_window_packed`` calls summed into a grid."""
+    from rsmcrt_tpu_torch.transport import deposit as dep
+
+    lane, vox, val = make_deposits()
+    t = lambda a, dt=torch.int32: torch.as_tensor(a, dtype=dt,  # noqa
+                                                  device=dev)
+    torch.cuda.synchronize()
+    dep.reset_counts()
+    t0 = time.perf_counter()
+    order = torch.argsort(dep.morton_key_3d(t(lane[:, 0]), t(lane[:, 1]),
+                                            t(lane[:, 2])))
+    vx, v = t(vox)[order], t(val, torch.float32)[order]
+    keys = dep.pack_deposit_key(vx[..., 0], vx[..., 1], vx[..., 2],
+                                v > 0.0).reshape(-1)
+    v = v.reshape(-1)
+    acc = torch.zeros((GRID,) * 3, device=dev)
+    for _ in range(32):
+        acc += dep.deposit_window_packed((GRID,) * 3, keys, v)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dep.window_kernel_launches
+    plain = dep.window_plain_calls
+    want = 32.0 * float(v.double().clamp(min=0.0).sum())
+    got = float(acc.double().sum())
+    log(f"[window-path] 32 calls on {keys.numel()} deposits: {wall:.3f} s, "
+        f"window kernel launches {launches}, plain calls {plain}, grid sum "
+        f"{got:.6g} vs {want:.6g} [{card}]")
+    if launches != 32 or plain != 0:
+        raise AssertionError("the window path did not run the window kernel")
+    if abs(got - want) > 1e-4 * want:
+        raise AssertionError("the window path lost deposits")
+    return launches
 
 
 def _reduced(tmp: Path, name: str, grid: int, nphotons: int):
@@ -271,6 +470,144 @@ def phase_slice(dev, tmp, card):
     return launches
 
 
+def phase_validation(dev, tmp, card):
+    """The detector slice: the van de Hulst slab at its 1,000,000 photons,
+    Rd and Td against the analytic values at the reference's gate
+    (tests/test_analytic_validation.py: 0.005 and 0.008)."""
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.detectors.detectors import totals
+    from rsmcrt_tpu_torch.transport import deposit as dep
+
+    parsed, scene = kernels.setup(SLAB, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dep.reset_counts()
+    res = kernels.run_MCRT(parsed, scene, record_fluence=False)
+    launches, plain = dep.deposit_kernel_launches, dep.deposit_plain_calls
+    peak = torch.cuda.max_memory_allocated(dev)
+    n = res.launched
+    rd, td = (float(v) for v in totals(res.bank) / n)
+    dev_sigma = []
+    for got, want in ((rd, 0.09739), (td, 0.66096)):
+        se = np.sqrt(want * (1.0 - want) / n)
+        dev_sigma.append((got - want) / se)
+    cfg = kernels.fast_path_defaults(fluence=False, device=dev)
+    log(f"[validation] res/validation1.toml: {n} photons, {res.steps} "
+        f"megasteps, {res.elapsed:.2f} s wall, "
+        f"{res.photons_per_second:.1f} photons/s, peak device memory "
+        f"{peak / 2**20:.1f} MiB, lanes {kernels.default_lanes(n, dev)}, "
+        f"dda_substeps {cfg['dda_substeps']}, chain_respawns "
+        f"{cfg['chain_respawns']} [{card}]")
+    log(f"[validation] Rd {rd:.5f} (want 0.09739 +- 0.005; "
+        f"{dev_sigma[0]:+.2f} standard errors), Td {td:.5f} (want 0.66096 "
+        f"+- 0.008; {dev_sigma[1]:+.2f} standard errors); nscatt/photon "
+        f"{res.nscatt_per_photon:.4f}; deposit kernel launches {launches}, "
+        f"plain calls {plain}")
+    if n != 1_000_000:
+        raise AssertionError(f"launched {n}")
+    if abs(rd - 0.09739) >= 0.005 or abs(td - 0.66096) >= 0.008:
+        raise AssertionError(f"slab Rd {rd} / Td {td} off the analytic "
+                             "values")
+    if launches <= 0 or plain != 0:
+        raise AssertionError("the detector slice did not run the deposit "
+                             "kernel")
+    kernels.finalise(res, data_dir=tmp / "slab", verbose=False)
+    for i in (1, 2):
+        if not (tmp / "slab" / "detectors" / f"detector_{i}.dat").exists():
+            raise AssertionError(f"detector_{i}.dat not written")
+    return rd, td
+
+
+def _bench_bank(dev):
+    """bench.bench_bank: a circle detector inside the sphere."""
+    from rsmcrt_tpu_torch.detectors import detectors as D
+
+    def f(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    circle = D.CircleDetectors(
+        pos=f([[0.0, 0.0, 0.8]]), dir=f([[0.0, 0.0, -1.0]]),
+        radius=f([1.0]), bin_wid=f([1.0 / 32]),
+        data=torch.zeros((1, 33), device=dev), nbins=32)
+    return D.DetectorBank(circle=circle, annulus=None, fibre=None,
+                          camera=None, target_values=f([-1.0]),
+                          order=(("circle", 0),), ids=("d0",), layers=(2,))
+
+
+def phase_fluenceless(dev, card, nphotons=2_000_000):
+    """bench.run_fluenceless on the port: sphere scene, bench circle
+    detector, 32768 lanes, K = 64, 3 in-chain respawns, no fluence, no
+    emission; cut from the bench's 32M photons to fit the time limit."""
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.detectors.detectors import totals
+    from rsmcrt_tpu_torch.transport import deposit as dep
+    from rsmcrt_tpu_torch.transport import engine
+
+    parsed, scene = kernels.setup(SPHERE, device=dev)
+    grid, src = parsed.settings.grid, parsed.source
+    bank = _bench_bank(dev)
+    cfg = engine.TransportConfig(
+        nphotons=nphotons, n_lanes=N_LANES, record_fluence=False,
+        record_emission=False, chain_scatter=True, dda_substeps=K,
+        chain_respawns=3)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    engine.warmup(scene, src, grid, gen, cfg, bank=bank, min_lanes=64)
+    gen.manual_seed(1)
+    torch.cuda.synchronize()
+    dep.reset_counts()
+    t0 = time.perf_counter()
+    tl, bank_out, launched, steps = engine.simulate(
+        scene, src, grid, gen, cfg, bank=bank, chunk_steps=48, min_lanes=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = int(launched)
+    total = float(totals(bank_out)[0])
+    launches = dep.deposit_kernel_launches
+    log(f"[fluenceless] sphere + bench circle detector: {launched} photons "
+        f"(cut from the bench's 32,000,000), {int(steps)} megasteps, "
+        f"{wall:.2f} s, {launched / wall:.1f} photons/s, detector total "
+        f"{total:.1f} ({total / launched:.5f} per photon), nscatt/photon "
+        f"{float(tl.nscatt) / launched:.4f}, deposit kernel launches "
+        f"{launches}, plain calls {dep.deposit_plain_calls} [{card}]")
+    if launched != nphotons or not total > 0.0:
+        raise AssertionError("fluenceless bench path failed")
+    if launches <= 0 or dep.deposit_plain_calls != 0:
+        raise AssertionError("the fluenceless path did not run the deposit "
+                             "kernel")
+    if float(tl.jmean.abs().sum()) != 0.0:
+        raise AssertionError("a fluenceless run recorded fluence")
+    return launched / wall
+
+
+def phase_detectors_card_vs_cpu(dev, tmp, card):
+    """res/test_dects.toml cut to 20,000 photons on 64^3, fluence on, on
+    the card and on the CPU: each detector total within 5 sigma (Poisson
+    on both runs), nscatt within 1.0."""
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.detectors.detectors import totals
+
+    g, n = 64, 20_000
+    toml = _reduced(tmp, "test_dects.toml", g, n)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        res = kernels.run_MCRT(*kernels.setup(toml, device=d))
+        if res.launched != n:
+            raise AssertionError(f"{d}: launched {res.launched}")
+        out[d.type] = (totals(res.bank).double().cpu().numpy(),
+                       res.nscatt_per_photon, res.elapsed)
+    (tot_c, ns_c, t_c), (tot_h, ns_h, t_h) = out["cuda"], out["cpu"]
+    sig = np.abs(tot_c - tot_h) / np.sqrt(np.maximum(tot_c + tot_h, 1.0))
+    log(f"[detectors] res/test_dects.toml at {n} photons on {g}^3: totals "
+        f"card {np.round(tot_c, 3).tolist()} vs CPU "
+        f"{np.round(tot_h, 3).tolist()} ({np.round(sig, 2).tolist()} "
+        f"sigma); nscatt {ns_c:.4f} vs {ns_h:.4f}; wall {t_c:.2f} s (card) "
+        f"vs {t_h:.2f} s (CPU) [{card}]")
+    if not np.all(sig < 5.0) or abs(ns_c - ns_h) >= 1.0 \
+            or not np.all(tot_c > 0):
+        raise AssertionError("card and CPU detectors disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -279,15 +616,23 @@ def main() -> int:
     card = card_line()
     log(f"[device] {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
     phase_build()
-    errs, times = phase_kernel(dev, card)
+    errs, times, bounds = phase_kernel(dev, card)
+    window = phase_window(dev, card)
+    window_launches = phase_window_path(dev, card)
     phase_physics(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         phase_card_vs_cpu(dev, tmp, card)
         launches = phase_slice(dev, tmp, card)
+        phase_validation(dev, tmp, card)
+        phase_fluenceless(dev, card)
+        phase_detectors_card_vs_cpu(dev, tmp, card)
+    log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     # the realistic mix: the shape the main path hands the kernel
-    ms, plain_ms = times["cloud"]
+    ms, plain_ms, lib_ms = times["cloud"]
+    tool = window["tool"]
     print(json.dumps({"kernels": [{
         "name": "deposit_add",
         "route": "cuda",
@@ -297,6 +642,21 @@ def main() -> int:
         "max_abs_err": errs["cloud"],
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": bounds["cloud"],
+        "bound_by": "bytes",
+        "library_ms": lib_ms,
+    }, {
+        "name": "deposit_window",
+        "route": "cuda",
+        "source": "rsmcrt_tpu_torch/csrc/deposit_window.cu",
+        "replaces": "rsmcrt_tpu/transport/deposit.py:158",
+        "launches": window_launches,
+        "max_abs_err": tool["err"],
+        "ms": tool["ms"],
+        "plain_ms": tool["plain_ms"],
+        "bound_ms": tool["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": tool["library_ms"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

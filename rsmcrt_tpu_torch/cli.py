@@ -28,8 +28,8 @@ def main(argv=None):
     ap.add_argument("--lanes", type=int, default=None,
                     help="wavefront width (defaults by device)")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda when visible, else "
-                         "cpu)")
+                    help="torch device (default: the CUDA card; 'cpu' runs "
+                         "the plain PyTorch path)")
     args = ap.parse_args(argv)
     if args.kernel != "default":
         raise NotImplementedError(

@@ -1,10 +1,11 @@
 """TOML configuration parsing (port of ``rsmcrt_tpu/config.py``).
 
-Parses the ``[source]``, ``[grid]``, ``[geometry]``, ``[output]`` and
-``[simulation]`` tables with the reference's defaults and error cases.
-Parts the port does not run yet raise ``NotImplementedError`` naming their
-ROADMAP item: source kinds other than ``point``, spectra other than
-``constant``, ``[[detectors]]`` and the escape / inverse kernels' tables.
+Parses the ``[source]``, ``[grid]``, ``[geometry]``, ``[[detectors]]``,
+``[output]`` and ``[simulation]`` tables with the reference's defaults and
+error cases.  Parts the port does not run yet raise
+``NotImplementedError`` naming their ROADMAP item: source kinds other than
+``point`` and ``pencil``, spectra other than ``constant`` and the escape /
+inverse kernels' tables.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .detectors.detectors import (AnnulusDetectors, CameraDetectors,
+                                  CircleDetectors, DetectorBank,
+                                  FibreDetectors)
 from .grid import CartGrid, cart_grid
 from .optics.piecewise import Constant
 from .sources.sources import Source, build_source
@@ -61,7 +65,7 @@ class Settings:
 class ParsedConfig:
     settings: Settings
     source: Source
-    detectors: object  # always None: detector banks are not ported
+    detectors: Optional[DetectorBank]
     geometry: dict  # geometry params fed to the scene registry
     spectrum: object
 
@@ -94,14 +98,14 @@ def _parse_spectrum(table, device):
 
 
 def _parse_source(cfg: dict, settings: Settings, device):
-    """reference: parse_source.f90:17-264 (point source)"""
+    """reference: parse_source.f90:17-264 (point and pencil sources)"""
     table = cfg.get("source")
     if table is None:
         raise ConfigError("Simulation needs Source table")
     name = table.get("name", "point")
     settings.source = name
     settings.nphotons = int(table.get("nphotons", 1_000_000))
-    if name != "point":
+    if name not in ("point", "pencil"):
         raise NotImplementedError(
             f"source {name!r} is not ported (ROADMAP queue 1, item 4: "
             "sources)")
@@ -116,8 +120,10 @@ def _parse_source(cfg: dict, settings: Settings, device):
             raise ConfigError(
                 "Direction needs a cardinal direction i.e x, y, or z")
         direction = np.asarray(cardinals[raw_dir], np.float64)
-    else:
+    elif name == "point":
         direction = np.asarray([0.0, 0.0, 1.0])
+    else:
+        raise ConfigError("Need to specify direction for source type!")
     spectrum = _parse_spectrum(table, device)
     src = build_source(name, spectrum=spectrum, device=device, position=pos,
                        direction=direction)
@@ -151,6 +157,8 @@ def _parse_geometry(cfg: dict, settings: Settings):
             "numOptProp")
     if settings.experiment == "sphere" and num != 1:
         raise ConfigError("For geometry of sphere must set numOptProp to one")
+    if settings.experiment == "box" and num != 1:
+        raise ConfigError("For geometry of box must set numOptProp to one")
 
     def opt_array(key, default):
         if key in table:
@@ -176,7 +184,130 @@ def _parse_geometry(cfg: dict, settings: Settings):
         table, "boundingBox", "geometry", default=[2.0, 2.0, 2.0]))
     if settings.experiment == "sphere":
         params["sphereRadius"] = float(table.get("sphereRadius", 1.0))
+    if settings.experiment == "box":
+        params["BoxDimensions"] = list(_get_vector(
+            table, "BoxDimensions", "geometry", default=[1.0, 1.0, 1.0]))
     return params
+
+
+def _parse_detectors(cfg: dict, settings: Settings, device):
+    """reference: parse_detectors.f90:17-141.  Builds the stacked families
+    in config order."""
+    entries = cfg.get("detectors")
+    if not entries:
+        return None
+    families = {"circle": [], "annulus": [], "fibre": [], "camera": []}
+    order, ids, layers, targets = [], [], [], []
+    for entry in entries:
+        kind = entry.get("type")
+        if kind not in families:
+            raise ConfigError(
+                "Invalid detector type. Valid types are "
+                "[circle, annulus, camera]")
+        if "ID" not in entry:
+            raise ConfigError("Need to specify a detector ID")
+        if bool(entry.get("trackHistory", False)):
+            settings.trackHistory = True
+        settings.historyFilename = entry.get("historyFileName",
+                                             "photPos.obj")
+        targets.append(float(entry.get("inverseTarget", -1.0)))
+        ids.append(entry["ID"])
+        layers.append(int(entry.get("layer", 1)))
+        order.append((kind, len(families[kind])))
+        families[kind].append(entry)
+
+    def t(values, dtype=torch.float32):
+        return torch.tensor(np.asarray(values), dtype=dtype, device=device)
+
+    def f32(rows, key, default):
+        return t([float(r.get(key, default)) for r in rows])
+
+    def vec(rows, key, default):
+        return t([_get_vector(r, key, "detector", default=default)
+                  for r in rows])
+
+    def unit(v):
+        return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+
+    def nbins_of(rows, default):
+        """Per-detector bin counts (reference detectors each carry their
+        own nbins, detectors.f90:107-210); the family's data pads to the
+        largest."""
+        per = [int(r.get("nbins", default)) for r in rows]
+        return max(per), t(per, torch.int32)
+
+    def width(extent, nbins_arr):
+        return torch.where(nbins_arr == 0, 1.0,
+                           extent / torch.clamp(nbins_arr, min=1))
+
+    def zeros(rows, nbins, dims=1):
+        return torch.zeros((len(rows),) + (nbins + 1,) * dims,
+                           dtype=torch.float32, device=device)
+
+    circle = annulus = fibre = camera = None
+    rows = families["circle"]
+    if rows:
+        nbins, nbins_arr = nbins_of(rows, 100)
+        radius = f32(rows, "radius", 1.0)
+        circle = CircleDetectors(
+            pos=vec(rows, "position", None),
+            dir=unit(vec(rows, "direction", [0.0, 0.0, -1.0])),
+            radius=radius, bin_wid=width(radius, nbins_arr),
+            data=zeros(rows, nbins), nbins=nbins, nbins_arr=nbins_arr)
+    rows = families["annulus"]
+    if rows:
+        nbins, nbins_arr = nbins_of(rows, 100)
+        r1, r2 = f32(rows, "radius1", 0.1), f32(rows, "radius2", 0.2)
+        if bool(torch.any(r2 <= r1)):
+            raise ConfigError("Radii are invalid: expected radius2 > radius1")
+        annulus = AnnulusDetectors(
+            pos=vec(rows, "position", None),
+            dir=unit(vec(rows, "direction", [0.0, 0.0, -1.0])),
+            r1=r1, r2=r2, bin_wid=width(r2 - r1, nbins_arr),
+            data=zeros(rows, nbins), nbins=nbins, nbins_arr=nbins_arr)
+    rows = families["fibre"]
+    if rows:
+        nbins, nbins_arr = nbins_of(rows, 1)
+        core = f32(rows, "coreDiameter", 0.01)
+
+        def dflt(key, *fallback):
+            return t([float(r.get(key, max(float(r.get(k, 1.0))
+                                           for k in fallback)))
+                      for r in rows])
+
+        fibre = FibreDetectors(
+            pos=vec(rows, "position", None),
+            dir=unit(vec(rows, "direction", [0.0, 0.0, -1.0])),
+            focalLength1=f32(rows, "focalLength1", 1.0),
+            focalLength2=f32(rows, "focalLength2", 1.0),
+            f1Aperture=f32(rows, "f1Aperture", 1.0),
+            f2Aperture=f32(rows, "f2Aperture", 1.0),
+            frontOffset=f32(rows, "frontOffset", 0.0),
+            backOffset=dflt("backOffset", "focalLength2"),
+            frontToPinSep=dflt("frontToPinSep", "focalLength1"),
+            pinToBackSep=dflt("pinToBackSep", "focalLength2"),
+            pinAperture=dflt("pinAperture", "f1Aperture", "f2Aperture"),
+            acceptAngle=f32(rows, "acceptanceAngle", 90.0),
+            coreDiameter=core, bin_wid=width(core / 2.0, nbins_arr),
+            data=zeros(rows, nbins), nbins=nbins, nbins_arr=nbins_arr)
+    rows = families["camera"]
+    if rows:
+        nbins, nbins_arr = nbins_of(rows, 100)
+        maxval = f32(rows, "maxval", 100.0)
+        p1 = vec(rows, "p1", [-1.0, -1.0, -1.0])
+        e1 = vec(rows, "p2", [2.0, 0.0, 0.0]) - p1
+        e2 = vec(rows, "p3", [0.0, 2.0, 0.0]) - p1
+        bw = maxval / (nbins_arr + 1)
+        camera = CameraDetectors(
+            pos=p1, n=unit(torch.linalg.cross(e2, e1)), e1=e1, e2=e2,
+            width=torch.linalg.vector_norm(e1, dim=-1),
+            height=torch.linalg.vector_norm(e2, dim=-1),
+            bin_wid_x=bw, bin_wid_y=bw.clone(), data=zeros(rows, nbins, 2),
+            nbins=nbins, nbins_arr=nbins_arr)
+    return DetectorBank(circle=circle, annulus=annulus, fibre=fibre,
+                        camera=camera, target_values=t(targets),
+                        order=tuple(order), ids=tuple(ids),
+                        layers=tuple(layers))
 
 
 def _parse_output(cfg: dict, settings: Settings):
@@ -227,14 +358,13 @@ def parse_params(filename: str | Path, res_dir: str | Path | None = None,
     filename = Path(filename)
     with open(filename, "rb") as fh:
         cfg = tomllib.load(fh)
-    if cfg.get("detectors"):
-        raise NotImplementedError(
-            "detectors are not ported (ROADMAP queue 1, item 7)")
     settings = Settings()
     source, spectrum = _parse_source(cfg, settings, device)
     _parse_grid(cfg, settings, device)
     geometry = _parse_geometry(cfg, settings)
+    detectors = _parse_detectors(cfg, settings, device)
     _parse_output(cfg, settings)
     _parse_simulation(cfg, settings)
-    return ParsedConfig(settings=settings, source=source, detectors=None,
-                        geometry=geometry, spectrum=spectrum)
+    return ParsedConfig(settings=settings, source=source,
+                        detectors=detectors, geometry=geometry,
+                        spectrum=spectrum)

@@ -20,7 +20,11 @@
 //
 // An index outside [0, size) with val > 0 is a caller bug: it is never
 // written, and is counted into *bad so the host can assert it stays 0.
+// round_bf16 rounds each value to bfloat16 (nearest even) before the float
+// sum, as deposit_delta's dot_dtype=bfloat16 does in the TPU kernel; the
+// val > 0 test is made on the float32 value, as there.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -28,6 +32,7 @@ __global__ void deposit_add_kernel(float* __restrict__ tally,
                                    const int32_t* __restrict__ idx,
                                    const float* __restrict__ val,
                                    int64_t n, int64_t size,
+                                   int round_bf16,
                                    int32_t* __restrict__ bad) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -39,14 +44,15 @@ __global__ void deposit_add_kernel(float* __restrict__ tally,
       atomicAdd(bad, 1);
       continue;
     }
-    atomicAdd(tally + j, v);
+    atomicAdd(tally + j,
+              round_bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v);
   }
 }
 
 // Launches on `stream`; returns cudaGetLastError() after the launch.
 extern "C" int rsmcrt_deposit_add(void* tally, const void* idx,
                                   const void* val, int64_t n, int64_t size,
-                                  void* bad, void* stream) {
+                                  int round_bf16, void* bad, void* stream) {
   if (n <= 0) return 0;
   const int threads = 256;
   int64_t blocks = (n + threads - 1) / threads;
@@ -56,6 +62,6 @@ extern "C" int rsmcrt_deposit_add(void* tally, const void* idx,
   deposit_add_kernel<<<(unsigned)blocks, threads, 0,
                        (cudaStream_t)stream>>>(
       (float*)tally, (const int32_t*)idx, (const float*)val, n, size,
-      (int32_t*)bad);
+      round_bf16, (int32_t*)bad);
   return (int)cudaGetLastError();
 }

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .detectors import detectors as D
 from .grid import CartGrid
 from .optics.piecewise import Constant
 from .sdfs.scene import PrimSpec, Scene, SceneTables
@@ -68,15 +69,43 @@ def source_from_numpy(src, device="cpu") -> Source:
                   spectrum=spectrum, subtype=src.subtype)
 
 
+_FAMILY_CLASS = {"circle": D.CircleDetectors,
+                 "annulus": D.AnnulusDetectors,
+                 "fibre": D.FibreDetectors, "camera": D.CameraDetectors}
+
+
+def bank_from_numpy(b, device="cpu"):
+    """A ``DetectorBank`` (or None) with the same families, parameters,
+    bins and config order."""
+    if b is None:
+        return None
+
+    def family(name):
+        f = getattr(b, name)
+        if f is None:
+            return None
+        cls = _FAMILY_CLASS[name]
+        kw = {}
+        for fld in dataclasses.fields(cls):
+            v = getattr(f, fld.name)
+            kw[fld.name] = (int(v) if fld.name == "nbins" else
+                            None if v is None else _t(v, device))
+        return cls(**kw)
+
+    return D.DetectorBank(
+        **{name: family(name) for name in D.FAMILIES},
+        target_values=_t(b.target_values, device),
+        order=tuple((str(f), int(m)) for f, m in b.order),
+        ids=tuple(b.ids), layers=tuple(b.layers))
+
+
 def carry_from_numpy(c, device="cpu") -> SimCarry:
-    if getattr(c, "bank", None) is not None:
-        raise NotImplementedError(
-            "detector banks are not ported (ROADMAP queue 1, item 7)")
     state = LaneState(**{f.name: _t(getattr(c.state, f.name), device)
                          for f in dataclasses.fields(LaneState)})
     tallies = Tallies(**{f.name: _t(getattr(c.tallies, f.name), device)
                          for f in dataclasses.fields(Tallies)})
-    return SimCarry(state=state, tallies=tallies, bank=None,
+    return SimCarry(state=state, tallies=tallies,
+                    bank=bank_from_numpy(getattr(c, "bank", None), device),
                     launched=_t(c.launched, device).to(torch.int32),
                     step=_t(c.step, device).to(torch.int32))
 

@@ -1,10 +1,11 @@
-"""Output writers: NRRD volumes, raw dumps and reference-format
-checkpoints (port of ``rsmcrt_tpu/io/writer.py``; reference:
-src/writer.f90).  NumPy only.  Detector dumps and the npz checkpoint are
-still to port (ROADMAP queue 1, items 7 and 9)."""
+"""Output writers: NRRD volumes, raw dumps, detector dumps and
+reference-format checkpoints (port of ``rsmcrt_tpu/io/writer.py``;
+reference: src/writer.f90).  NumPy only.  The npz checkpoint is still to
+port (ROADMAP queue 1, item 9)."""
 
 from __future__ import annotations
 
+import struct
 from pathlib import Path
 
 import numpy as np
@@ -112,3 +113,53 @@ def read_checkpoint(filename: str | Path, shape):
     jmean = np.frombuffer(raw[second_nl + 1:], np.float32)
     jmean = jmean[: int(np.prod(shape))].reshape(shape, order="F")
     return toml_filename, nphotons_run, jmean
+
+
+def write_detected_photons(bank, nphotons: int, out_dir: str | Path):
+    """Binary per-detector dumps (reference: writer.f90:55-134), byte for
+    byte the reference package's format: a little-endian float64 stream;
+    type tag (1 circle, 2 fibre, 3 annulus, 4 camera), ID length and
+    characters, nphotons, geometry parameters, then (bin centre, count)
+    pairs, or for the camera its 2D grid."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def host(x):
+        return np.asarray(x.detach().cpu().numpy())
+
+    for i, (fam, member) in enumerate(bank.order):
+        d = getattr(bank, fam)
+        dect_id = bank.ids[i]
+        with open(out_dir / f"detector_{i + 1}.dat", "wb") as fh:
+            def w(*vals):
+                for v in vals:
+                    fh.write(struct.pack("<d", float(v)))
+
+            tag = {"circle": 1.0, "fibre": 2.0, "annulus": 3.0,
+                   "camera": 4.0}[fam]
+            w(tag, len(dect_id))
+            for ch in dect_id:
+                w(ord(ch))
+            if fam == "camera":
+                w(nphotons)
+                host(d.data[member]).astype(np.float64).tofile(fh)
+                continue
+            if fam == "circle":
+                w(nphotons, host(d.radius[member]))
+            elif fam == "annulus":
+                w(nphotons, host(d.r1[member]), host(d.r2[member]))
+            else:
+                w(nphotons)
+            w(*host(d.pos[member]))
+            w(*host(d.dir[member]))
+            if fam == "fibre":
+                w(*(host(getattr(d, k)[member]) for k in (
+                    "focalLength1", "focalLength2", "f1Aperture",
+                    "f2Aperture", "frontOffset", "backOffset",
+                    "frontToPinSep", "pinToBackSep", "pinAperture",
+                    "acceptAngle", "coreDiameter")))
+            data = host(d.data[member])
+            bw = float(host(d.bin_wid[member]))
+            r0 = float(host(d.r1[member])) if fam == "annulus" else 0.0
+            for j, val in enumerate(data):
+                w((j + 0.5) * bw + r0, val)

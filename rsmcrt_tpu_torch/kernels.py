@@ -18,7 +18,8 @@ import torch
 
 from . import default_device
 from .config import ParsedConfig, parse_params
-from .io.writer import read_checkpoint, write_checkpoint, write_data
+from .io.writer import (read_checkpoint, write_checkpoint, write_data,
+                        write_detected_photons)
 from .scenes import setup_simulation
 from .sdfs.scene import Scene, build_scene
 from .tally import as_volume, normalise_fluence
@@ -27,7 +28,7 @@ from .transport.engine import TransportConfig, simulate
 
 def default_lanes(nphotons: int, device=None) -> int:
     """Wavefront width: 32768 lanes on a CUDA card, at most 4096 on the
-    CPU (small test runs)."""
+    CPU (small test runs).  ``device=None`` means the card."""
     device = torch.device(device) if device is not None else default_device()
     cap = 1 << 15 if device.type == "cuda" else 1 << 12
     lanes = 1
@@ -39,8 +40,9 @@ def default_lanes(nphotons: int, device=None) -> int:
 def fast_path_defaults(fluence: bool = True, device=None) -> dict:
     """Fast-path transport knobs shared by every forward run.  On a CUDA
     card K = 64 voxel intervals per lane per megastep amortise the
-    per-round launch cost over more work; on the CPU K = 8 keeps test
-    runs short."""
+    per-round launch cost over more work, and a fluenceless run gives each
+    lane 3 in-chain respawn candidates; on the CPU K = 8 and 1 candidate
+    keep test runs short.  ``device=None`` means the card."""
     device = torch.device(device) if device is not None else default_device()
     on_cuda = device.type == "cuda"
     return {
@@ -72,7 +74,7 @@ class SimResult:
 def setup(input_file: str | Path, kernel: str = "default", res_dir=None,
           device=None) -> tuple[ParsedConfig, Scene]:
     """Parse the config and build the scene on ``device`` (default: the
-    CUDA card when one is visible, else the CPU)
+    CUDA card; raises when none is visible)
     (reference: kernelsMod.f90:2225-2319)."""
     device = torch.device(device) if device is not None else default_device()
     parsed = parse_params(input_file, res_dir=res_dir, kernel=kernel,
@@ -153,7 +155,7 @@ def run_MCRT(parsed: ParsedConfig, scene: Scene, nphotons=None,
     _sync(device)
     t0 = time.perf_counter()
     tallies, bank, launched, steps = simulate(
-        scene, parsed.source, grid, gen, cfg,
+        scene, parsed.source, grid, gen, cfg, bank=parsed.detectors,
         progress=progress if want_progress else None)
     _sync(device)
     elapsed = time.perf_counter() - t0
@@ -194,6 +196,8 @@ def finalise(result: SimResult, data_dir: str | Path = "data",
         write_data(host(result.tallies.absorb),
                    data_dir / "absorb" / st.outfile_absorb,
                    overwrite=st.overwrite, metadata=metadata)
+    if result.bank is not None and result.bank.n_detectors > 0:
+        write_detected_photons(result.bank, n, data_dir / "detectors")
     if verbose:
         print(f"Average # of scatters per photon: "
               f"{result.nscatt_per_photon:.4f}")

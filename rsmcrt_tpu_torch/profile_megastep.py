@@ -1,0 +1,110 @@
+"""Where a megastep's time goes on the card.
+
+    python -m rsmcrt_tpu_torch.profile_megastep res/sphere.toml
+    python -m rsmcrt_tpu_torch.profile_megastep --no-fluence \
+        res/validation1.toml
+
+Builds the config's forward run as ``kernels.run_MCRT`` does (detector
+bank, fast-path defaults), takes ``--warm`` megasteps so the lanes are in
+flight, times ``--steps`` megasteps on the host clock around synchronised
+work, then runs ``--steps`` more under ``torch.profiler`` and prints, per
+megastep: the wall time, the device kernels launched, their device time,
+the device busy share (device time over the unprofiled wall) and the
+kernels that take most of the device time.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import subprocess
+import sys
+import time
+
+
+def main(argv=None) -> int:
+    import torch
+
+    from . import kernels
+    from .transport import engine
+
+    ap = argparse.ArgumentParser(prog="rsmcrt_tpu_torch.profile_megastep")
+    ap.add_argument("config")
+    ap.add_argument("--no-fluence", action="store_true",
+                    help="fluence estimator off (detector workloads)")
+    ap.add_argument("--warm", type=int, default=4)
+    ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--top", type=int, default=8)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile: no CUDA card visible", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    fluence = not args.no_fluence
+    parsed, scene = kernels.setup(args.config, device=dev)
+    st = parsed.settings
+    cfg = engine.TransportConfig(
+        nphotons=st.nphotons, n_lanes=kernels.default_lanes(st.nphotons,
+                                                            dev),
+        record_fluence=fluence, record_emission=True,
+        roulette_bounces=st.roulette_bounces,
+        roulette_chance=st.roulette_chance,
+        **kernels.fast_path_defaults(fluence=fluence, device=dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(st.iseed)
+    carry = engine.init_carry(st.grid, cfg, bank=parsed.detectors)
+
+    def steps(n, carry):
+        for _ in range(n):
+            carry = engine.transport_step(carry, scene, parsed.source,
+                                          st.grid, gen, cfg)
+        torch.cuda.synchronize(dev)
+        return carry
+
+    carry = steps(args.warm, carry)
+    t0 = time.perf_counter()
+    carry = steps(args.steps, carry)
+    wall = (time.perf_counter() - t0) / args.steps
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        carry = steps(args.steps, carry)
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"[profile] {args.config}: lanes {cfg.n_lanes}, dda_substeps "
+          f"{cfg.dda_substeps}, chain_respawns {cfg.chain_respawns}, "
+          f"fluence {fluence}, detectors "
+          f"{0 if parsed.detectors is None else parsed.detectors.n_detectors}"
+          f" [{card}]")
+    print(f"[profile] wall per megastep (unprofiled) {wall * 1e3:.1f} ms; "
+          f"{int(carry.launched)} photons launched after "
+          f"{args.warm + 2 * args.steps} megasteps")
+    if not kern:
+        print("[profile] the profiler saw no device kernels: device time "
+              "not measured")
+        return 0
+    dev_us = sum(e.time_range.elapsed_us() for e in kern)
+    per_step = dev_us / args.steps
+    n_k = len(kern) / args.steps
+    print(f"[profile] device kernels per megastep {n_k:.0f} "
+          f"({n_k / cfg.dda_substeps:.0f} per chain round); device time "
+          f"per megastep {per_step / 1e3:.2f} ms; device busy "
+          f"{per_step / 1e3 / (wall * 1e3):.1%} of the unprofiled wall")
+    by_name = collections.Counter()
+    count = collections.Counter()
+    for e in kern:
+        by_name[e.name] += e.time_range.elapsed_us()
+        count[e.name] += 1
+    for name, us in by_name.most_common(args.top):
+        print(f"[profile]   {us / dev_us:6.1%}  {us / args.steps / 1e3:8.3f} "
+              f"ms/megastep  {count[name] / args.steps:7.0f} launches  "
+              f"{name[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

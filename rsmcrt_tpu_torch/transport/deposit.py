@@ -1,17 +1,27 @@
-"""Voxel tally deposits: the hand-written CUDA kernel and its plain twin.
+"""Voxel tally deposits: the hand-written CUDA kernels and their plain
+twins.
 
-Port of ``rsmcrt_tpu/transport/deposit.py::deposit_delta`` (the Pallas
-``_deposit_kernel``).  The JAX kernel sums N voxel deposits into a fresh
-delta grid; here :func:`deposit_add_` adds them into the running tally in
-place, which saves zeroing and re-adding the whole grid on every call.
-:func:`deposit_delta` keeps the JAX signature on top of it for parity
-tests.
+Port of ``rsmcrt_tpu/transport/deposit.py``, whose two Pallas kernels both
+have a counterpart here:
 
-On a CUDA tensor :func:`deposit_add_` launches ``csrc/deposit.cu`` (float
-atomics into the L2-resident tally); on a CPU tensor it runs the plain
-PyTorch version, :func:`deposit_add_plain`.  There is no fallback between
-the two.  ``deposit_kernel_launches`` and ``deposit_plain_calls`` count
-which one ran.
+- ``deposit_delta`` (the Pallas ``_deposit_kernel``) sums N voxel deposits
+  into a fresh delta grid.  Here :func:`deposit_add_` adds them into the
+  running tally in place, which saves zeroing and re-adding the whole grid
+  on every call; :func:`deposit_delta` keeps the JAX signature on top of
+  it.  On a CUDA tensor it launches ``csrc/deposit.cu``; on a CPU tensor
+  it runs :func:`deposit_add_plain`.
+- ``deposit_window_packed`` (the Pallas ``_window_kernel``) sums packed
+  ``(ix << 20) | (iy << 10) | iz`` keys into a fresh grid.  On a CUDA
+  tensor it launches ``csrc/deposit_window.cu``; on a CPU tensor it runs
+  :func:`deposit_window_packed_plain`.  :func:`deposit_window_delta`,
+  :func:`pack_deposit_key`, :func:`morton_key_3d` and
+  :func:`morton_key_xy` keep the JAX names and contracts.
+
+There is no fallback between a kernel and its twin: the device of the
+tensors decides.  The ``*_kernel_launches`` and ``*_plain_calls`` counters
+say which one ran.  ``dot_dtype=torch.bfloat16`` rounds each value to
+bfloat16 (nearest even) before the float32 sum, as the TPU kernels' bf16
+contraction does.
 """
 
 from __future__ import annotations
@@ -22,6 +32,12 @@ import torch
 deposit_kernel_launches = 0
 #: plain-version calls made by :func:`deposit_add_` (CPU tensors)
 deposit_plain_calls = 0
+#: kernel launches made by :func:`deposit_window_packed` (CUDA tensors)
+window_kernel_launches = 0
+#: plain-version calls made by :func:`deposit_window_packed` (CPU tensors)
+window_plain_calls = 0
+
+_BIG = 2**30  # the dead packed key
 
 # per-device int32 count of deposits whose index was out of range
 _bad: dict = {}
@@ -29,8 +45,26 @@ _bad: dict = {}
 
 def reset_counts():
     global deposit_kernel_launches, deposit_plain_calls
+    global window_kernel_launches, window_plain_calls
     deposit_kernel_launches = 0
     deposit_plain_calls = 0
+    window_kernel_launches = 0
+    window_plain_calls = 0
+
+
+def _round_bf16(dot_dtype) -> bool:
+    if dot_dtype == torch.float32:
+        return False
+    if dot_dtype == torch.bfloat16:
+        return True
+    raise TypeError(f"dot_dtype must be float32 or bfloat16, not {dot_dtype}")
+
+
+def _as_dot(val: torch.Tensor, dot_dtype) -> torch.Tensor:
+    """Each value rounded to ``dot_dtype`` and back to float32."""
+    if _round_bf16(dot_dtype):
+        return val.to(torch.bfloat16).to(torch.float32)
+    return val
 
 
 def _bad_counter(device: torch.device) -> torch.Tensor:
@@ -41,8 +75,10 @@ def _bad_counter(device: torch.device) -> torch.Tensor:
 
 
 def out_of_range_count(device) -> int:
-    """Deposits with ``val > 0`` whose index lay outside the tally, summed
-    over every kernel launch on ``device`` (a caller bug; must stay 0)."""
+    """Deposits whose index lay outside the tally, summed over every call
+    on ``device``: live (``val > 0``) deposits of :func:`deposit_add_`
+    kernel launches and live keys of :func:`deposit_window_packed` (a
+    caller bug; must stay 0)."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -50,11 +86,13 @@ def out_of_range_count(device) -> int:
 
 
 def deposit_add_plain(tally_flat: torch.Tensor, flat_idx: torch.Tensor,
-                      val: torch.Tensor) -> torch.Tensor:
+                      val: torch.Tensor, dot_dtype=torch.float32
+                      ) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: ``tally[idx] += val`` over
     ``val > 0``, in place."""
     live = val > 0.0
-    return tally_flat.index_add_(0, flat_idx[live].long(), val[live])
+    return tally_flat.index_add_(0, flat_idx[live].long(),
+                                 _as_dot(val[live], dot_dtype))
 
 
 def _check(tally_flat, flat_idx, val):
@@ -72,7 +110,7 @@ def _check(tally_flat, flat_idx, val):
 
 
 def deposit_add_(tally_flat: torch.Tensor, flat_idx: torch.Tensor,
-                 val: torch.Tensor) -> torch.Tensor:
+                 val: torch.Tensor, dot_dtype=torch.float32) -> torch.Tensor:
     """Add every ``val > 0`` into ``tally_flat[flat_idx]`` in place.
 
     ``tally_flat``: float32 ``[nx*ny*nz]``; ``flat_idx``: int32, flattened
@@ -80,10 +118,11 @@ def deposit_add_(tally_flat: torch.Tensor, flat_idx: torch.Tensor,
     of the same shape.  Returns ``tally_flat``."""
     global deposit_kernel_launches, deposit_plain_calls
     _check(tally_flat, flat_idx, val)
+    round_bf16 = _round_bf16(dot_dtype)
     dev = tally_flat.device
     if dev.type == "cpu":
         deposit_plain_calls += 1
-        return deposit_add_plain(tally_flat, flat_idx, val)
+        return deposit_add_plain(tally_flat, flat_idx, val, dot_dtype)
     if dev.type != "cuda":
         raise NotImplementedError(f"no deposit kernel for {dev.type}")
     idx = flat_idx.reshape(-1).contiguous()
@@ -97,7 +136,8 @@ def deposit_add_(tally_flat: torch.Tensor, flat_idx: torch.Tensor,
     with torch.cuda.device(dev):
         rc = lib.rsmcrt_deposit_add(
             tally_flat.data_ptr(), idx.data_ptr(), v.data_ptr(), n,
-            tally_flat.numel(), _bad_counter(dev).data_ptr(),
+            tally_flat.numel(), int(round_bf16),
+            _bad_counter(dev).data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"deposit kernel launch failed: CUDA error {rc}")
@@ -105,7 +145,8 @@ def deposit_add_(tally_flat: torch.Tensor, flat_idx: torch.Tensor,
     return tally_flat
 
 
-def deposit_delta(grid_shape, x, y, z, val) -> torch.Tensor:
+def deposit_delta(grid_shape, x, y, z, val,
+                  dot_dtype=torch.float32) -> torch.Tensor:
     """The JAX ``deposit_delta`` contract: N deposits (int32 voxel
     coordinates ``x, y, z``, float32 ``val``; ``val <= 0`` ignored) summed
     into a fresh ``[nx, ny, nz]`` grid."""
@@ -115,5 +156,175 @@ def deposit_delta(grid_shape, x, y, z, val) -> torch.Tensor:
     flat = ((x * ny + y) * nz + z).to(torch.int32)
     # dead rows may carry any coordinates: point them at cell 0
     flat = torch.where(live, flat, 0)
-    deposit_add_(out, flat, val.to(torch.float32))
+    deposit_add_(out, flat, val.to(torch.float32), dot_dtype)
     return out.reshape(nx, ny, nz)
+
+
+# --- the windowed kernel over packed keys ---------------------------------
+
+#: shared memory a block may use on Hopper (227 KB), less the kernel's own
+#: static reduction buffer
+_SMEM_LIMIT = 232_448 - 1024
+#: window rounds per chunk before the rest go straight to the grid
+WINDOW_MAX_ROUNDS = 8
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def pack_deposit_key(ix, iy, iz, live) -> torch.Tensor:
+    """Pack int32 voxel coordinates into the window kernel's deposit key
+    (lexicographic order = x-major); dead deposits get ``_BIG``."""
+    key = ((ix.to(torch.int32) << 20) | (iy.to(torch.int32) << 10)
+           | iz.to(torch.int32))
+    return torch.where(live, key, _BIG).to(torch.int32)
+
+
+def _decode(keys: torch.Tensor):
+    """Unsigned decode of int32 keys, as the TPU kernel's logical shifts."""
+    k = keys.to(torch.int64) & 0xFFFFFFFF
+    return k >> 20, (k >> 10) & 1023, k & 1023
+
+
+def deposit_window_packed_plain(grid_shape, keys: torch.Tensor,
+                                val: torch.Tensor,
+                                dot_dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch twin of the window kernel: decode the keys and
+    ``index_add_`` every live one into a fresh ``[nx, ny, nz]`` grid.
+    Live keys outside the grid are counted, not written."""
+    nx, ny, nz = grid_shape
+    ix, iy, iz = _decode(keys)
+    live = keys != _BIG
+    inside = (ix < nx) & (iy < ny) & (iz < nz)
+    bad = live & ~inside
+    counter = _bad_counter(keys.device)
+    counter += torch.sum(bad, dtype=torch.int32)
+    m = live & inside
+    flat = (ix * ny + iy) * nz + iz
+    out = torch.zeros(nx * ny * nz, dtype=torch.float32, device=val.device)
+    out.index_add_(0, flat[m], _as_dot(val.to(torch.float32)[m], dot_dtype))
+    return out.reshape(nx, ny, nz)
+
+
+def _window_dims(grid_shape, chunk, window):
+    """The JAX entry point's checks, then the window clamped to the grid
+    and to the shared memory a block has."""
+    nx, ny, nz = grid_shape
+    if max(nx, ny, nz) > 1024:
+        raise ValueError("grid dims must be <= 1024 for packed keys")
+    if chunk % 128:
+        raise ValueError(f"chunk={chunk} must be a multiple of 128")
+    wx, wy, wz = window
+    if min(wy, _round_up(ny, 8)) % 8:
+        raise ValueError(f"wy={wy} must be a multiple of 8")
+    wx, wy, wz = min(wx, nx), min(wy, ny), min(wz, nz)
+    # halve the longest side until the window and the chunk's four words
+    # a deposit fit in shared memory
+    while 4 * wx * wy * wz + 16 * chunk > _SMEM_LIMIT:
+        if max(wx, wy, wz) == 1:
+            raise ValueError(f"chunk={chunk} does not fit in shared memory")
+        if wz >= max(wx, wy):
+            wz = -(-wz // 2)
+        elif wy >= wx:
+            wy = -(-wy // 2)
+        else:
+            wx = -(-wx // 2)
+    return wx, wy, wz
+
+
+def deposit_window_packed(grid_shape, keys: torch.Tensor, val: torch.Tensor,
+                          *, chunk: int = 2048, window=(32, 32, 32),
+                          dot_dtype=torch.float32) -> torch.Tensor:
+    """Accumulate N packed deposits into a fresh ``[nx, ny, nz]`` grid.
+
+    ``keys``: int32 ``[N]`` from :func:`pack_deposit_key` (``_BIG`` =
+    dead; rows ordered so that near deposits are adjacent, e.g. lanes
+    sorted by :func:`morton_key_3d`, make fewer window rounds).  ``val``:
+    float32 ``[N]``; every live key's value is added, ``val <= 0``
+    included.  On a CUDA tensor this launches ``csrc/deposit_window.cu``
+    (one block per ``chunk`` keys, a ``window`` of floats in shared
+    memory); on a CPU tensor it runs
+    :func:`deposit_window_packed_plain`."""
+    global window_kernel_launches, window_plain_calls
+    wx, wy, wz = _window_dims(grid_shape, chunk, window)
+    round_bf16 = _round_bf16(dot_dtype)
+    if keys.dtype != torch.int32 or val.dtype != torch.float32:
+        raise TypeError("keys must be int32 and val float32")
+    if keys.shape != val.shape or keys.ndim != 1:
+        raise ValueError(f"keys {tuple(keys.shape)} and val "
+                         f"{tuple(val.shape)} must be the same 1-D shape")
+    if keys.device != val.device:
+        raise ValueError("keys and val must share a device")
+    dev = keys.device
+    if dev.type == "cpu":
+        window_plain_calls += 1
+        return deposit_window_packed_plain(grid_shape, keys, val, dot_dtype)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"no window kernel for {dev.type}")
+    nx, ny, nz = grid_shape
+    out = torch.zeros(nx * ny * nz, dtype=torch.float32, device=dev)
+    k, v = keys.contiguous(), val.contiguous()
+    n = k.numel()
+    if n == 0:
+        return out.reshape(nx, ny, nz)
+    from .. import _build
+
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        rc = lib.rsmcrt_deposit_window(
+            out.data_ptr(), k.data_ptr(), v.data_ptr(), n, nx, ny, nz, wx,
+            wy, wz, chunk, int(round_bf16), WINDOW_MAX_ROUNDS,
+            _bad_counter(dev).data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"window kernel launch failed: CUDA error {rc}")
+    window_kernel_launches += 1
+    return out.reshape(nx, ny, nz)
+
+
+def deposit_window_delta(grid_shape, x, y, z, val, *, chunk: int = 2048,
+                         window=(32, 32, 32),
+                         dot_dtype=torch.float32) -> torch.Tensor:
+    """xyz-coordinate wrapper over :func:`deposit_window_packed` (the
+    :func:`deposit_delta` contract: ``val <= 0`` ignored)."""
+    keys = pack_deposit_key(x, y, z, val > 0.0)
+    return deposit_window_packed(grid_shape, keys, val.to(torch.float32),
+                                 chunk=chunk, window=window,
+                                 dot_dtype=dot_dtype)
+
+
+def morton_key_3d(ix, iy, iz) -> torch.Tensor:
+    """Interleave the low 10 bits of three int32 coordinate tensors into a
+    30-bit Morton (z-order) key: the lane sort key for
+    :func:`deposit_window_packed` chunk locality."""
+
+    def part1by2(a):
+        a = a & 0x3FF
+        a = (a | (a << 16)) & 0x030000FF
+        a = (a | (a << 8)) & 0x0300F00F
+        a = (a | (a << 4)) & 0x030C30C3
+        return (a | (a << 2)) & 0x09249249
+
+    def c(a):
+        return torch.clamp(a.to(torch.int32), 0, 1023)
+
+    return (part1by2(c(ix)) | (part1by2(c(iy)) << 1)
+            | (part1by2(c(iz)) << 2))
+
+
+def morton_key_xy(ix, iy) -> torch.Tensor:
+    """Interleave the low 16 bits of two int32 coordinate tensors into a
+    Morton (z-order) key (int32, wrapping like the reference's)."""
+
+    def part1by1(a):
+        a = a & 0xFFFF
+        a = (a | (a << 8)) & 0x00FF00FF
+        a = (a | (a << 4)) & 0x0F0F0F0F
+        a = (a | (a << 2)) & 0x33333333
+        return (a | (a << 1)) & 0x55555555
+
+    def c(a):
+        return torch.clamp(a.to(torch.int32), min=0)
+
+    return part1by1(c(ix)) | (part1by1(c(iy)) << 1)

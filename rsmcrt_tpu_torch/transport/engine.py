@@ -1,5 +1,6 @@
 """Wavefront photon transport engine (port of
-``rsmcrt_tpu/transport/engine.py``: the chained forward fluence path).
+``rsmcrt_tpu/transport/engine.py``: the chained forward path, with or
+without the fluence estimator, and detector banks).
 
 A batch of photon lanes advances in lockstep, one *megastep* per
 :func:`transport_step` call:
@@ -12,17 +13,22 @@ A batch of photon lanes advances in lockstep, one *megastep* per
 2. **Chained DDA walk** (:func:`_chained_dda`): every lane walks up to
    ``dda_substeps`` voxel-wall intervals, consuming scatter, absorption,
    surface and in-chain respawn events in place (reference update_grids,
-   inttau2.f90:408-445, and kernelsMod.f90:1958-1974).
+   inttau2.f90:408-445, and kernelsMod.f90:1958-1974).  Without the
+   fluence estimator every round jumps a whole segment instead
+   (inttau2.f90:446-462).  Detector banks test each new segment.
 3. **Interaction** leftovers at completed segment ends.
 
 The three voxel tallies change only through
 :func:`~rsmcrt_tpu_torch.transport.deposit.deposit_add_` (the CUDA deposit
 kernel on the card), once per tally per megastep on the ``[B, K]`` lists.
+Detector bins change once per megastep in the analysis phase
+(:func:`record_hits`) and once after the chain (:func:`flush_bins`).
 
-Ported: analog absorption, fluence and emission on, all-analytic scenes,
-in-chain respawn, bounce roulette, scatter-order moments and
-``max_scatter_order``.  Options of :class:`TransportConfig` that select
-anything else raise ``NotImplementedError`` naming their ROADMAP item.
+Ported: analog absorption, fluence on or off, emission, all-analytic
+scenes, in-chain respawn, detector banks, bounce roulette,
+scatter-order moments and ``max_scatter_order``.  Options of
+:class:`TransportConfig` that select anything else raise
+``NotImplementedError`` naming their ROADMAP item.
 
 Random numbers: each megastep consumes three uniform blocks in (0, 1)
 (:class:`StepDraws`), drawn from the run's ``torch.Generator`` unless the
@@ -40,6 +46,7 @@ import numpy as np
 import torch
 
 from ..constants import TWOPI
+from ..detectors.detectors import check_bins, flush_bins, record_hits
 from ..grid import CartGrid, f32, get_voxel, voxel_flat_index
 from ..sdfs import raycast
 from ..sdfs.scene import Scene, eval_scene, scene_layer
@@ -110,8 +117,6 @@ class TransportConfig:
             (tuple(self.escape_shape) != (0, 0), "escape_shape",
              "item 12: workloads"),
             (self.inverse_prim > 0, "inverse_prim", "item 12: workloads"),
-            (not self.record_fluence, "record_fluence=False",
-             "item 7: fluenceless path and detectors"),
             (not self.chain_scatter, "chain_scatter=False",
              "item 10: plain walk"),
         ]
@@ -156,7 +161,7 @@ class LaneState:
 class SimCarry:
     state: LaneState
     tallies: Tallies
-    bank: object  # detector banks are not ported: always None
+    bank: object  # DetectorBank | None
     launched: torch.Tensor  # 0-d int32
     step: torch.Tensor  # 0-d int32
 
@@ -218,10 +223,8 @@ def _init_lanes(B: int, device, history_len: int = 0,
 
 def init_carry(grid: CartGrid, cfg: TransportConfig, bank=None,
                dtype=torch.float32) -> SimCarry:
-    """A fresh carry on the grid's device: every lane dead, tallies 0."""
-    if bank is not None:
-        raise NotImplementedError(
-            "detector banks are not ported (ROADMAP queue 1, item 7)")
+    """A fresh carry on the grid's device: every lane dead, tallies 0.
+    The detector bank is copied there, so the caller's stays as it is."""
     dev = grid.device
     return SimCarry(
         state=_init_lanes(cfg.n_lanes, dev, cfg.history_len, dtype),
@@ -229,7 +232,7 @@ def init_carry(grid: CartGrid, cfg: TransportConfig, bank=None,
                              history_shape=(cfg.max_tracks,
                                             max(cfg.history_len, 1)),
                              phasor=cfg.record_phasor, pmc_shape=(0, 6)),
-        bank=None,
+        bank=None if bank is None else bank.to(dev),
         launched=torch.zeros((), dtype=torch.int32, device=dev),
         step=torch.zeros((), dtype=torch.int32, device=dev),
     )
@@ -288,18 +291,23 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
                  weight, tau, seg_rem, seg_interact, seg_srf, seg_cont,
                  seg_prim, layer, alive, steps, bounces, wavelength, phase,
                  tables, land_eps, seg_cap, mom_pos, mom_pos2,
-                 respawn=None):
+                 bank=None, respawn=None):
     """DDA walk with in-line scatter, absorption, Fresnel-boundary and
-    respawn chaining (analog absorption, fluence on).
+    respawn chaining (analog absorption).
 
-    Each of the K rounds deposits the interval up to the lane's next voxel
-    wall or segment end; a lane whose segment ends consumes the event in
-    place (HG scatter + fresh tau, absorption, or the surface normal,
-    eps-nudge probe and stochastic Fresnel branch) and re-anchors its
-    wall-crossing streams via the analytic raycast.  A lane whose photon
-    dies relaunches its precomputed source candidate (``respawn``) while
-    its absorption record slots and the photon budget allow.  Voxels are
-    tracked incrementally (the crossing axis steps the integer cell).
+    With the fluence estimator on, each of the K rounds deposits the
+    interval up to the lane's next voxel wall or segment end; without it
+    (the reference without -Dpathlength, inttau2.f90:446-462) every round
+    jumps a whole segment, and a lane dies where the segment's end leaves
+    the grid.  A lane whose segment ends consumes the event in place (HG
+    scatter + fresh tau, absorption, or the surface normal, eps-nudge
+    probe and stochastic Fresnel branch) and re-anchors its wall-crossing
+    streams via the analytic raycast.  A lane whose photon dies relaunches
+    its precomputed source candidate (``respawn``) while its absorption
+    record slots and the photon budget allow.  Voxels are tracked
+    incrementally (the crossing axis steps the integer cell).  A detector
+    ``bank`` tests each new segment (``check_bins``); its bins are added
+    once after the loop (``flush_bins``).
     """
     dtype = pos.dtype
     dev = pos.device
@@ -309,6 +317,7 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
     dv = grid.voxel_size
     counts = grid.n_counts
     eps, _, delta_cross = _scalars(cfg)
+    fluence = cfg.record_fluence
 
     walking = alive & (seg_rem > 0.0)
     p0 = pos
@@ -317,9 +326,13 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
     seg_int, srf_f, cont_f, prim_l = seg_interact, seg_srf, seg_cont, seg_prim
     layer_l, w_l, bounces_l = layer, weight, bounces
     wavelength_l, phase_l = wavelength, phase
-    cellf = torch.floor((p0 + half) / dv)
-    cell = cellf.to(torch.int32)  # [B, 3]
-    t_next, dt_ax = _wall_streams(p0, dirc, cellf, grid)
+    if fluence:
+        cellf = torch.floor((p0 + half) / dv)
+        cell = cellf.to(torch.int32)  # [B, 3]
+        t_next, dt_ax = _wall_streams(p0, dirc, cellf, grid)
+    else:
+        # no voxel intervals: the next "wall" is never reached
+        t_next = torch.full((B, 3), _BIG, dtype=dtype, device=dev)
     s_prev = torch.zeros((B,), dtype=dtype, device=dev)
 
     died = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -338,6 +351,10 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
     cand_k = torch.zeros((B,), dtype=torch.int32, device=dev)
     steps_l, tau_l = steps, tau
     flats, vals = [], []
+    # per-round detector (bin, weight) candidates, flushed after the loop
+    # (one test per straight segment, inttau2.f90:195-200; the analysis
+    # phase's segments were tested by record_hits)
+    dect_acc = {}
     # current-layer optical properties, one gather of [B, 4] per round
     opt_pack = torch.stack(
         [tables.kappa, tables.albedo, tables.hgg, tables.n], dim=-1)
@@ -348,12 +365,19 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
         ends = rem <= c
         hi = torch.where(ends, rem, c)
         length = torch.clamp(hi - s_prev, min=0.0)
-        valid = torch.all((cell >= 0) & (cell < counts), dim=-1)
-        safe = torch.minimum(torch.clamp(cell, min=0), counts - 1)
-        flat = (safe[:, 0] * grid.nyg + safe[:, 1]) * grid.nzg + safe[:, 2]
-        # interval outside the grid: the photon dies at the grid wall
-        # (reference update_grids tflag, inttau2.f90:437-440)
-        exit_now = walking & ~valid & (length > 0.0)
+        if fluence:
+            valid = torch.all((cell >= 0) & (cell < counts), dim=-1)
+            safe = torch.minimum(torch.clamp(cell, min=0), counts - 1)
+            flat = ((safe[:, 0] * grid.nyg + safe[:, 1]) * grid.nzg
+                    + safe[:, 2])
+            # interval outside the grid: the photon dies at the grid wall
+            # (reference update_grids tflag, inttau2.f90:437-440)
+            exit_now = walking & ~valid & (length > 0.0)
+        else:
+            # endpoint validity, like the plain fluenceless jump
+            flat, valid = voxel_flat_index(
+                grid, get_voxel(grid, p0 + rem[:, None] * dirc))
+            exit_now = walking & ~valid
         died = died | exit_now
         base = walking & ~exit_now
 
@@ -410,8 +434,9 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
         # --- deposits: the interval plus, for transmitting lanes, the
         # crossing nudge (inttau2.f90:75-146) ------------------------------
         dep_len = length + torch.where(trans, delta_cross, 0.0)
-        flats.append(flat)
-        vals.append(torch.where(walking & valid, dep_len * w_dep, 0.0))
+        if fluence:
+            flats.append(flat)
+            vals.append(torch.where(walking & valid, dep_len * w_dep, 0.0))
         phase_l = phase_l + torch.where(walking, dep_len, 0.0)
 
         # --- continuation: scatter + surviving surface lanes --------------
@@ -491,19 +516,30 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
 
         ev = ((do_sc | srf_cont | cont_ev) & ~over) | resp
         evm = ev[:, None]
+        if bank is not None:
+            # test each NEW segment against every detector at creation
+            fams = check_bins(bank, np_pos, np_dir,
+                              torch.where(ev, rem2, 0.0),
+                              torch.where(ev, w_l, 0.0))
+            for fam, (idx, w) in fams.items():
+                acc = dect_acc.setdefault(fam, ([], []))
+                acc[0].append(idx)
+                acc[1].append(w)
         dirc = torch.where(evm, np_dir, dirc)
         p0 = torch.where(evm, np_pos, p0)
-        # re-anchor the wall-crossing streams at the event point (the
-        # tracked cell stays authoritative; a respawned lane teleports,
-        # so its cell is recomputed from the candidate position)
-        cellf2 = cell.to(dtype)
-        if respawn is not None:
-            cellf2 = torch.where(rm, torch.floor((np_pos + half) / dv),
-                                 cellf2)
-            cell = torch.where(rm, cellf2.to(torch.int32), cell)
-        t02, dt2 = _wall_streams(np_pos, np_dir, cellf2, grid)
-        t_next = torch.where(evm, t02, t_next)
-        dt_ax = torch.where(evm, dt2, dt_ax)
+        if fluence:
+            # re-anchor the wall-crossing streams at the event point (the
+            # tracked cell stays authoritative; a respawned lane
+            # teleports, so its cell is recomputed from the candidate
+            # position)
+            cellf2 = cell.to(dtype)
+            if respawn is not None:
+                cellf2 = torch.where(rm, torch.floor((np_pos + half) / dv),
+                                     cellf2)
+                cell = torch.where(rm, cellf2.to(torch.int32), cell)
+            t02, dt2 = _wall_streams(np_pos, np_dir, cellf2, grid)
+            t_next = torch.where(evm, t02, t_next)
+            dt_ax = torch.where(evm, dt2, dt_ax)
         rem = torch.where(ev, rem2, rem)
         seg_int = torch.where(ev, int2, seg_int)
         srf_f = torch.where(ev, srf2, srf_f)
@@ -518,16 +554,21 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
         s_prev = torch.where(fin, rem, s_prev)
         walking = (base & (~ends | ev)) | resp
 
-        # wall crossing for lanes whose segment continues past it
-        # (respawned lanes start their new stream next round)
-        adv = walking & ~ends & ~resp
-        selm = (t_next == c[:, None]) & adv[:, None]
-        am = selm & (torch.cumsum(selm.to(torch.int32), dim=-1) == 1)
-        stepdir = torch.where(dirc > 0.0, 1, -1).to(torch.int32)
-        cell = cell + torch.where(am, stepdir, 0)
-        t_next = torch.clamp(t_next + torch.where(am, dt_ax, 0.0), max=_BIG)
-        s_prev = torch.where(adv, c, s_prev)
+        if fluence:
+            # wall crossing for lanes whose segment continues past it
+            # (respawned lanes start their new stream next round)
+            adv = walking & ~ends & ~resp
+            selm = (t_next == c[:, None]) & adv[:, None]
+            am = selm & (torch.cumsum(selm.to(torch.int32), dim=-1) == 1)
+            stepdir = torch.where(dirc > 0.0, 1, -1).to(torch.int32)
+            cell = cell + torch.where(am, stepdir, 0)
+            t_next = torch.clamp(t_next + torch.where(am, dt_ax, 0.0),
+                                 max=_BIG)
+            s_prev = torch.where(adv, c, s_prev)
 
+    if dect_acc:
+        bank = flush_bins(bank, {fam: (torch.cat(ix), torch.cat(w))
+                                 for fam, (ix, w) in dect_acc.items()})
     pos_new = p0 + s_prev[:, None] * dirc
     seg_rem_new = torch.clamp(rem - s_prev, min=0.0)
     alive_new = alive & ~died
@@ -536,11 +577,13 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
         seg_interact=seg_int, seg_srf=srf_f, seg_cont=cont_f,
         seg_prim=prim_l, layer=layer_l, alive=alive_new, steps=steps_l,
         bounces=bounces_l, wavelength=wavelength_l, phase=phase_l,
-        n_resp=n_resp, flat_k=torch.stack(flats, dim=-1),
-        deps_k=torch.stack(vals, dim=-1),
+        n_resp=n_resp,
+        flat_k=torch.stack(flats, dim=-1) if fluence else None,
+        deps_k=torch.stack(vals, dim=-1) if fluence else None,
         absorb_w=torch.stack(absorb_ws, dim=-1),
         absorb_flat=torch.stack(absorb_fls, dim=-1), n_scat=n_scat,
-        n_inter=n_inter, mom_pos=mom_pos, mom_pos2=mom_pos2, cand_k=cand_k)
+        n_inter=n_inter, mom_pos=mom_pos, mom_pos2=mom_pos2, cand_k=cand_k,
+        bank=bank)
 
 
 def transport_step(carry: SimCarry, scene: Scene, source: Source,
@@ -712,6 +755,14 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
 
     alive = alive & ~(escaped | outside_after | overbounced)
 
+    # --- detectors: one test per whole segment (reference hit protocol,
+    # inttau2.f90:195-200) ------------------------------------------------
+    bank = carry.bank
+    if bank is not None:
+        bank = record_hits(bank, pos, direction,
+                           torch.where(alive & need_seg, seg_rem, 0.0),
+                           torch.where(alive, weight, 0.0))
+
     # =================================================================
     # Phase 2: chained DDA walk
     # =================================================================
@@ -748,7 +799,7 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
         scene, grid, cfg, draws.uc, pos, direction, weight, tau, seg_rem,
         seg_interact, seg_srf, seg_cont, seg_prim, layer, alive, steps,
         bounces, wavelength, phase, tables, land_eps, seg_cap, tl.mom_pos,
-        tl.mom_pos2, respawn=respawn_cand)
+        tl.mom_pos2, bank=bank, respawn=respawn_cand)
     pos, direction, weight, tau = (out["pos"], out["dir"], out["weight"],
                                    out["tau"])
     seg_rem, seg_interact, seg_srf = (out["seg_rem"], out["seg_interact"],
@@ -765,8 +816,10 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
             cfg.chain_respawns, device=dev)[:, None]  # [C, B]
         deposit_add_(tl.emission, r_flat,
                      (consumed.reshape(-1) & r_vok).to(dtype))
-    flat_k, deps_k = out["flat_k"], out["deps_k"]
-    deposit_add_(tl.jmean, flat_k.reshape(-1), deps_k.reshape(-1))
+    bank = out["bank"]
+    deps_k = out["deps_k"]
+    if cfg.record_fluence:
+        deposit_add_(tl.jmean, out["flat_k"].reshape(-1), deps_k.reshape(-1))
 
     # =================================================================
     # Phase 3: interactions at completed segment ends (the rare lane that
@@ -818,8 +871,11 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
         died = died | (steps > cfg.max_scatter_order)
     alive = alive & ~died
 
+    n_dep = (torch.sum(deps_k > 0.0, dtype=torch.int32)
+             if cfg.record_fluence
+             else torch.zeros((), dtype=torch.int32, device=dev))
     perf = tl.perf + torch.stack([
-        torch.sum(deps_k > 0.0, dtype=torch.int32),
+        n_dep,
         torch.sum(alive, dtype=torch.int32),
         torch.sum(need_seg, dtype=torch.int32),
         n_interactions,
@@ -832,7 +888,7 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
         steps=steps, phase=phase, wavelength=wavelength)
     new_tallies = replace(tl, nscatt=nscatt, mom_pos=mom_pos,
                           mom_pos2=mom_pos2, perf=perf)
-    return SimCarry(state=new_state, tallies=new_tallies, bank=None,
+    return SimCarry(state=new_state, tallies=new_tallies, bank=bank,
                     launched=launched, step=carry.step + 1)
 
 
@@ -858,7 +914,7 @@ def _compact_lanes(carry: SimCarry, new_B: int) -> SimCarry:
     st = carry.state
     new_state = LaneState(**{f.name: getattr(st, f.name)[order]
                              for f in dataclasses.fields(LaneState)})
-    return SimCarry(state=new_state, tallies=carry.tallies, bank=None,
+    return SimCarry(state=new_state, tallies=carry.tallies, bank=carry.bank,
                     launched=carry.launched, step=carry.step)
 
 
@@ -876,18 +932,16 @@ def warmup(scene: Scene, source: Source, grid: CartGrid,
            min_lanes: int = 4096):
     """Build the CUDA kernels (on a CUDA scene) and run one megastep at
     every wavefront width of the shrink ladder, so a timed run pays no
-    build and no first-use allocation.  Leaves no tally behind."""
+    build and no first-use allocation.  Leaves no tally behind and the
+    caller's bank as it was."""
     cfg.check_ported()
-    if bank is not None:
-        raise NotImplementedError(
-            "detector banks are not ported (ROADMAP queue 1, item 7)")
     if scene.device.type == "cuda":
         from .. import _build
 
         _build.load()
     for lanes in shrink_ladder(cfg.n_lanes, min_lanes):
         cfg_l = replace(cfg, n_lanes=lanes)
-        carry = init_carry(grid, cfg_l)
+        carry = init_carry(grid, cfg_l, bank=bank)
         _run_steps(scene, source, grid, generator, carry, cfg_l, 1,
                    max(lanes // 8, 1))
     if scene.device.type == "cuda":
@@ -899,8 +953,8 @@ def simulate(scene: Scene, source: Source, grid: CartGrid,
              chunk_steps: int = 16, progress=None, nphotons=None,
              tail_shrink: bool = True, min_lanes: int = 4096):
     """Run a full forward simulation; returns (tallies, detector bank
-    (None), photons launched, megasteps executed) -- the last two as 0-d
-    int32 tensors.
+    (a copy of ``bank`` with the run's hits, or None), photons launched,
+    megasteps executed) -- the last two as 0-d int32 tensors.
 
     Work is dispatched in chunks of ``chunk_steps`` megasteps with one
     host synchronisation per chunk (on ``launched`` and the alive count);
@@ -909,12 +963,9 @@ def simulate(scene: Scene, source: Source, grid: CartGrid,
     the survivors are compacted into a wavefront 1/8 as wide
     (``tail_shrink``)."""
     cfg.check_ported()
-    if bank is not None:
-        raise NotImplementedError(
-            "detector banks are not ported (ROADMAP queue 1, item 7)")
     n_target = int(cfg.nphotons if nphotons is None else nphotons)
     cur_cfg = cfg
-    carry = init_carry(grid, cfg)
+    carry = init_carry(grid, cfg, bank=bank)
     step = 0
     while True:
         # at tail widths use longer chunks: host round trips dominate there
@@ -938,4 +989,4 @@ def simulate(scene: Scene, source: Source, grid: CartGrid,
             new_B = max(min_lanes, cur_cfg.n_lanes // 8)
             carry = _compact_lanes(carry, new_B)
             cur_cfg = replace(cur_cfg, n_lanes=new_B)
-    return carry.tallies, None, carry.launched, carry.step
+    return carry.tallies, carry.bank, carry.launched, carry.step

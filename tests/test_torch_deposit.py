@@ -118,6 +118,28 @@ def test_plain_deposit_matches_pallas_kernel(case):
                                atol=1e-5 * max(float(want.max()), 1.0))
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_deposit_bf16_matches_pallas_kernel(case):
+    """``dot_dtype`` bfloat16: each value rounded to bfloat16 before the
+    float32 sum, in both packages (same tolerance as above)."""
+    import jax.numpy as jnp
+
+    from rsmcrt_tpu.transport.deposit import deposit_delta as jdeposit_delta
+
+    shape, x, y, z, val = CASES[case](np.random.default_rng(11))
+    want = np.asarray(jdeposit_delta(
+        shape, jnp.asarray(x, jnp.int32), jnp.asarray(y, jnp.int32),
+        jnp.asarray(z, jnp.int32), jnp.asarray(val, jnp.float32),
+        chunk=128, tx=8, ty=8, interpret=True, dot_dtype=jnp.bfloat16))
+    got = tdep.deposit_delta(
+        shape, torch.as_tensor(x, dtype=torch.int32),
+        torch.as_tensor(y, dtype=torch.int32),
+        torch.as_tensor(z, dtype=torch.int32), torch.as_tensor(val),
+        dot_dtype=torch.bfloat16)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * max(float(want.max()), 1.0))
+
+
 def test_deposit_add_accumulates_in_place_and_skips_nonpositive():
     tally = torch.zeros(27, dtype=torch.float32)
     tally[4] = 2.0

@@ -110,5 +110,21 @@ def test_warmup():
     cfg = te.TransportConfig(nphotons=100, n_lanes=1024, chain_scatter=True)
     te.warmup(scene, src, grid, torch.Generator().manual_seed(2), cfg,
               min_lanes=256)
+    # with a detector bank: the caller's bins stay as they were
+    from rsmcrt_tpu_torch.detectors import detectors as D
+
+    f = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    bank = D.DetectorBank(
+        circle=D.CircleDetectors(
+            pos=f([[0.0, 0.0, 0.8]]), dir=f([[0.0, 0.0, -1.0]]),
+            radius=f([1.0]), bin_wid=f([1.0 / 32]),
+            data=torch.zeros((1, 33)), nbins=32),
+        annulus=None, fibre=None, camera=None, target_values=f([-1.0]),
+        order=(("circle", 0),), ids=("d0",), layers=(2,))
+    te.warmup(scene, src, grid, torch.Generator().manual_seed(2),
+              dataclasses.replace(cfg, record_fluence=False), bank=bank,
+              min_lanes=256)
+    assert float(bank.circle.data.sum()) == 0.0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.warmup(scene, src, grid, None, cfg, bank=object())
+        te.warmup(scene, src, grid, None,
+                  dataclasses.replace(cfg, survival_bias=True), bank=bank)

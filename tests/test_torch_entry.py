@@ -66,7 +66,7 @@ def test_setup_builds_the_reference_scene(name):
 
 BASE = """
 [source]
-name = "point"
+name = "{src}"
 nphotons = 100
 position = [0.0, 0.0, 0.0]
 {extra_source}
@@ -90,11 +90,11 @@ iseed = 3
     (dict(geom="egg", num=3), NotImplementedError),
     (dict(extra_source='spectrum_type = "1D"'), NotImplementedError),
     (dict(extra_source='spectrum_type = "bogus"'), ConfigError),
-    (dict(extra='[[detectors]]\ntype = "circle"\nID = "a"'),
-     NotImplementedError),
+    (dict(src="uniform"), NotImplementedError),
 ])
 def test_parse_errors(tmp_path, fields, err):
-    body = dict(geom="scat_test", num=1, extra="", extra_source="")
+    body = dict(geom="scat_test", num=1, extra="", extra_source="",
+                src="point")
     body.update(fields)
     cfg = tmp_path / "c.toml"
     cfg.write_text(BASE.format(**body))
@@ -134,7 +134,7 @@ def test_display_settings_matches_reference():
 def test_cli_runs_the_forward_kernel(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     cfg = tmp_path / "c.toml"
-    cfg.write_text(BASE.format(geom="sphere", num=1, extra="",
+    cfg.write_text(BASE.format(geom="sphere", num=1, extra="", src="point",
                                extra_source=""))
     res = subprocess.run(
         [sys.executable, "-m", "rsmcrt_tpu_torch.cli", "--device", "cpu",
@@ -145,3 +145,21 @@ def test_cli_runs_the_forward_kernel(tmp_path):
     assert "Average # of scatters per photon" in res.stdout
     vol, _ = tw.read_nrrd(tmp_path / "data" / "jmean" / "out.nrrd")
     assert vol.shape == (8, 8, 8) and vol.sum() > 0
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """Without a visible card an entry point refuses to run rather than
+    fall back to the CPU; ``device="cpu"`` still runs there."""
+    import rsmcrt_tpu_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        rsmcrt_tpu_torch.default_device()
+    cfg = ROOT / "res" / "scat_test.toml"
+    for call in (lambda: tk.setup(cfg), lambda: tk.default_lanes(100),
+                 lambda: tk.fast_path_defaults(),
+                 lambda: tk.default_MCRT(cfg, verbose=False)):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            call()
+    assert tk.default_lanes(100, device="cpu") == 256
+    assert tk.setup(cfg, device="cpu")[1].device.type == "cpu"

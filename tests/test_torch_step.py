@@ -14,6 +14,9 @@ for that step, injected into the port as ``StepDraws``).
   ``tau - len * kappa`` loses relative precision near 0.
 - Fluence, absorption and emission sums agree to rel 1e-4; ``launched``,
   ``nscatt`` and the perf counters are equal.
+- With a circle detector bank and the fluence estimator off, the same
+  holds, and the bank's bins agree: the same bins are hit (bin indices
+  equal) and their sums agree to the float tolerance above.
 """
 
 import dataclasses
@@ -23,7 +26,9 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
+from rsmcrt_tpu.detectors.detectors import CircleDetectors, DetectorBank
 from rsmcrt_tpu.grid import cart_grid
 from rsmcrt_tpu.scenes import setup_sphere
 from rsmcrt_tpu.sdfs import scene as S
@@ -108,11 +113,71 @@ def test_one_megastep_matches_reference(extra):
     assert got["step"] == int(want.step)
 
 
+def _circle_bank():
+    # the bench's detector (bench.bench_bank): a disc inside the sphere
+    return DetectorBank(
+        circle=CircleDetectors(
+            pos=jnp.asarray([[0.0, 0.0, 0.8]], jnp.float32),
+            dir=jnp.asarray([[0.0, 0.0, -1.0]], jnp.float32),
+            radius=jnp.asarray([1.0], jnp.float32),
+            bin_wid=jnp.asarray([1.0 / 32], jnp.float32),
+            data=jnp.zeros((1, 33), jnp.float32), nbins=32),
+        annulus=None, fibre=None, camera=None,
+        target_values=jnp.full((1,), -1.0), order=(("circle", 0),),
+        ids=("d0",), layers=(2,))
+
+
+def test_one_fluenceless_megastep_with_bank_matches_reference():
+    scene = S.build_scene(setup_sphere(BENCH))
+    grid = cart_grid(16, 16, 16, 1.0, 1.0, 1.0)
+    src = build_source("point", position=[0.0, 0.0, 0.0])
+    cfg = je.TransportConfig(nphotons=2000, n_lanes=B, chain_scatter=True,
+                             dda_substeps=K, record_emission=True,
+                             record_fluence=False, chain_respawns=2)
+    key = jax.random.key(9)
+    step = jax.jit(lambda c: je.transport_step(c, scene, src, grid, key,
+                                               cfg))
+    carry = je.init_carry(grid, cfg, bank=_circle_bank())
+    for _ in range(2):
+        carry = step(carry)
+
+    to_np = lambda x: jax.tree_util.tree_map(np.asarray, x)  # noqa: E731
+    tc = interop.carry_from_numpy(to_np(carry))
+    tcfg = te.TransportConfig(**dataclasses.asdict(cfg))
+    draws = _jax_draws(key, carry.step, cfg, src)
+    want_c = step(carry)
+    want = to_np(want_c)
+    got_c = te.transport_step(
+        tc, interop.scene_from_numpy(to_np(scene)),
+        interop.source_from_numpy(to_np(src)),
+        interop.grid_from_numpy(to_np(grid)), None, tcfg, draws=draws)
+    got = interop.carry_to_numpy(got_c)
+    gs, ws = got["state"], want.state
+    assert 0.2 < ws.alive.mean()
+    for f in ("alive", "layer", "steps", "bounces", "seg_prim",
+              "seg_interact", "seg_srf"):
+        assert (gs[f] == getattr(ws, f)).mean() >= 0.99, f
+    assert got["launched"] == int(want.launched)
+    assert float(got["tallies"]["nscatt"]) == float(want.tallies.nscatt)
+    np.testing.assert_array_equal(got["tallies"]["perf"], want.tallies.perf)
+    assert float(got["tallies"]["jmean"].sum()) == 0.0
+    for f in ("absorb", "emission"):
+        a, b = float(got["tallies"][f].sum()), float(
+            getattr(want.tallies, f).sum())
+        assert abs(a - b) <= 1e-4 * abs(b), (f, a, b)
+    gd = got_c.bank.circle.data.numpy()
+    wd = np.asarray(want_c.bank.circle.data)
+    assert wd.sum() > float(np.asarray(carry.bank.circle.data).sum())
+    np.testing.assert_array_equal(gd > 0, wd > 0)
+    np.testing.assert_allclose(gd, wd, rtol=1e-4, atol=1e-4)
+
+
 def test_unported_options_raise():
     for opt in (dict(survival_bias=True), dict(record_phasor=True),
                 dict(history_len=4), dict(qmc_source=True),
                 dict(escape_shape=(2, 1)), dict(inverse_prim=1),
-                dict(record_fluence=False), dict(chain_scatter=False)):
+                dict(record_fluence=False, chain_scatter=False),
+                dict(chain_scatter=False)):
         cfg = te.TransportConfig(nphotons=1, chain_scatter=True)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             dataclasses.replace(cfg, **opt).check_ported()
