@@ -8,9 +8,12 @@ Phases (each raises on failure; the exit code is non-zero on any):
 2. build: compiles the CUDA kernels from ``rsmcrt_tpu_torch/csrc`` with
    nvcc and prints the build time and ptxas's register / spill report.
 3. kernel against plain: the deposit kernel against its plain PyTorch twin
-   on the card, at the main path's shape (32768 lanes x 64 rounds =
-   2,097,152 deposits into a 200^3 tally), for three input mixes; both
-   timed with CUDA events.
+   on the card, on three synthetic mixes (32768 lanes x 64 rounds =
+   2,097,152 deposits into a 200^3 tally) and on the rows of the four
+   ``deposit_add_`` calls of one megastep of res/sphere.toml, captured
+   after 8 warm megasteps; each timed with CUDA events beside its plain
+   twin and one ``index_add_``, with the rows' live share, rows per cell
+   and mean group of equal indices in 32 consecutive rows.
 4. physics gate: res/scat_test.toml at its 100,000 photons on the 200^3
    grid through ``kernels.run_MCRT``; nscatt/photon must be 57.5 +- 0.5.
 5. card against CPU: a reduced res/sphere.toml (32^3 grid, 16,000
@@ -87,7 +90,7 @@ def phase_build():
     log(f"[build] nvcc + load {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds:.2f} s)")
     for line in _build.build_log.splitlines():
-        if re.search(r"registers|spill", line):
+        if re.search(r"entry function|registers|spill", line):
             log("[build] ptxas:", line.strip())
 
 
@@ -149,11 +152,17 @@ def _library_add(tally, idx, val):
 
 
 def _time_ms(fn, reps=20):
+    """Device time of one ``fn()`` call: CUDA events around ``reps``
+    calls after warm-up.  A spin kernel holds the card while the host
+    queues the calls, so a call whose host side is slower than its kernel
+    is still timed on the device (a call that synchronises, like the
+    plain twins' boolean masks, waits for the host all the same)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     a.record()
     for _ in range(reps):
         fn()
@@ -162,14 +171,91 @@ def _time_ms(fn, reps=20):
     return a.elapsed_time(b) / reps
 
 
+def capture_megastep(toml, dev, warm=8, n_lanes=N_LANES):
+    """The rows every ``deposit_add_`` call of one megastep of a forward
+    fluence run hands the kernel.  Builds the run as ``kernels.run_MCRT``
+    does, takes ``warm`` megasteps so the lanes are in flight, then runs
+    one more through ``engine.transport_step`` with the engine's
+    ``deposit_add_`` wrapped to clone each call's ``(flat_idx, val)``.
+    Returns ``(calls, before, after)``: ``calls`` maps a name to
+    ``(tally name, idx, val)`` in call order (the launch emission, the
+    in-chain respawn emission, the fluence walk, the absorption);
+    ``before`` / ``after`` are the three tallies around the megastep."""
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.transport import engine
+
+    parsed, scene = kernels.setup(toml, device=dev)
+    st = parsed.settings
+    cfg = engine.TransportConfig(
+        nphotons=st.nphotons, n_lanes=n_lanes, record_fluence=True,
+        record_emission=True, roulette_bounces=st.roulette_bounces,
+        roulette_chance=st.roulette_chance,
+        **kernels.fast_path_defaults(device=dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(st.iseed)
+    carry = engine.init_carry(st.grid, cfg, bank=parsed.detectors)
+    for _ in range(warm):
+        carry = engine.transport_step(carry, scene, parsed.source, st.grid,
+                                      gen, cfg)
+    tallies = ("jmean", "absorb", "emission")
+    names = {"emission": ["emission", "emission_respawn"],
+             "jmean": ["jmean"], "absorb": ["absorb"]}
+    by_id = {id(getattr(carry.tallies, t)): t for t in tallies}
+    before = {t: getattr(carry.tallies, t).clone() for t in tallies}
+    calls = {}
+    real = engine.deposit_add_
+
+    def recording(tally_flat, flat_idx, val, dot_dtype=torch.float32):
+        t = by_id[id(tally_flat)]
+        calls[names[t].pop(0)] = (t, flat_idx.clone(), val.clone())
+        return real(tally_flat, flat_idx, val, dot_dtype)
+
+    engine.deposit_add_ = recording
+    try:
+        carry = engine.transport_step(carry, scene, parsed.source, st.grid,
+                                      gen, cfg)
+    finally:
+        engine.deposit_add_ = real
+    after = {t: getattr(carry.tallies, t).clone() for t in tallies}
+    return calls, before, after
+
+
+def match_group(idx, val):
+    """Mean size of the groups of equal live indices (``val > 0``) within
+    each window of 32 consecutive rows, the groups ``__match_any_sync``
+    sees in one slot of a warp: live rows over the windows' distinct live
+    indices.  A property of the rows, not of the kernel's choices."""
+    n = idx.numel()
+    pad = (-n) % 32
+    dead = torch.iinfo(torch.int64).min
+    j = torch.nn.functional.pad(idx.long(), (0, pad)).reshape(-1, 32)
+    live = torch.nn.functional.pad(val, (0, pad)).reshape(-1, 32) > 0
+    js = torch.where(live, j, dead).sort(-1).values
+    distinct = int(((js[:, 1:] != js[:, :-1]) & (js[:, 1:] != dead)).sum()
+                   + (js[:, 0] != dead).sum())
+    return int(live.sum()) / max(distinct, 1)
+
+
 def phase_kernel(dev, card):
+    """``deposit_add_`` against its plain twin on the card: phase 3's
+    synthetic mixes and the rows one megastep of the sphere run hands it
+    (captured), each timed beside its plain twin and one ``index_add_``."""
     from rsmcrt_tpu_torch.transport import deposit as dep
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     n_cells = GRID ** 3
-    errs, times, bounds = {}, {}, {}
-    for name, (idx, val) in _mixes(dev, gen).items():
+    inputs = dict(_mixes(dev, gen))
+    calls, _, _ = capture_megastep(SPHERE, dev)
+    shapes = {k: tuple(i.shape) for k, (_, i, _) in calls.items()}
+    log(f"[kernel] one megastep of res/sphere.toml ({N_LANES} lanes, "
+        f"K = {K}) calls deposit_add_ {len(calls)} times: {shapes}")
+    if list(calls) != ["emission", "emission_respawn", "jmean", "absorb"]:
+        raise AssertionError(f"captured calls {list(calls)}")
+    for k, (_, idx, val) in calls.items():
+        inputs[f"capture_{k}"] = (idx, val)
+    rows = {}
+    for name, (idx, val) in inputs.items():
         got = dep.deposit_add_(torch.zeros(n_cells, device=dev), idx, val)
         want = dep.deposit_add_plain(torch.zeros(n_cells, device=dev), idx,
                                      val)
@@ -184,7 +270,6 @@ def phase_kernel(dev, card):
         if err > rtol * scale:
             raise AssertionError(f"{name}: kernel vs plain {err} > "
                                  f"{rtol} * {scale}")
-        errs[name] = err
         if name == "one_voxel":
             ref = float(val.double().clamp(min=0.0).sum())
             cell = int(idx[0])
@@ -195,27 +280,34 @@ def phase_kernel(dev, card):
             log(f"[kernel] one_voxel: kernel {float(got[cell])} float64 "
                 f"{ref} rel {rel:.3e}")
         tally = torch.zeros(n_cells, device=dev)
-        t_plain = _time_ms(lambda: dep.deposit_add_plain(tally, idx, val))
-        t_kern = _time_ms(lambda: dep.deposit_add_(tally, idx, val))
-        t_plain2 = _time_ms(lambda: dep.deposit_add_plain(tally, idx, val))
-        t_kern2 = _time_ms(lambda: dep.deposit_add_(tally, idx, val))
+        t_p1, t_k1, t_k2, t_p2 = (_time_ms(f) for f in (
+            lambda: dep.deposit_add_plain(tally, idx, val),
+            lambda: dep.deposit_add_(tally, idx, val),
+            lambda: dep.deposit_add_(tally, idx, val),
+            lambda: dep.deposit_add_plain(tally, idx, val)))
         t_lib = min(_time_ms(_library_add(tally, idx, val))
                     for _ in range(2))
-        times[name] = (min(t_kern, t_kern2), min(t_plain, t_plain2), t_lib)
-        # each deposit's index and value read once, each touched cell
-        # written once
-        touched = int(torch.unique(idx[val > 0]).numel())
-        bounds[name] = _bound_ms(8 * idx.numel() + 4 * touched)
-        log(f"[kernel] {name}: {idx.numel()} deposits into {GRID}^3, "
-            f"max_abs_err {err:.3e} (max cell {scale:.4g}); kernel "
-            f"{t_kern:.4f}/{t_kern2:.4f} ms, plain index_add_ "
-            f"{t_plain:.4f}/{t_plain2:.4f} ms, one index_add_ call "
-            f"{t_lib:.4f} ms, bound {bounds[name]:.4f} ms ({touched} cells "
-            f"touched) per call [{card}]")
+        live = val > 0
+        n_live = int(live.sum())
+        touched = int(torch.unique(idx[live]).numel())
+        # each row's index and value read once; each touched cell read
+        # and written once (the add is in place)
+        bound = _bound_ms(8 * idx.numel() + 8 * touched)
+        row = dict(err=err, ms=min(t_k1, t_k2), plain_ms=min(t_p1, t_p2),
+                   library_ms=t_lib, bound_ms=bound)
+        line = (f"[kernel] {name}: {idx.numel()} rows into {GRID}^3, live "
+                f"share {n_live / idx.numel():.4f}, live rows per distinct "
+                f"cell {n_live / max(touched, 1):.3f}, mean match group "
+                f"{match_group(idx, val):.3f}; max_abs_err {err:.3e} (max "
+                f"cell {scale:.4g}); kernel {t_k1:.4f}/{t_k2:.4f} ms, plain "
+                f"{t_p1:.4f}/{t_p2:.4f} ms, one index_add_ {t_lib:.4f} ms, "
+                f"bound {bound:.4f} ms ({touched} cells touched)")
+        rows[name] = row
+        log(line + f" [{card}]")
     bad = dep.out_of_range_count(dev)
     if bad != 0:
         raise AssertionError(f"{bad} out-of-range deposits")
-    return errs, times, bounds
+    return rows
 
 
 def make_deposits(B=32768, K=16, n=200, sigma=35.0, seed=0):
@@ -324,12 +416,14 @@ def phase_window(dev, card):
         rows[name] = dict(err=err[torch.float32], ms=min(t_k1, t_k2),
                           plain_ms=min(t_p1, t_p2), add_ms=t_add,
                           library_ms=t_lib, bound_ms=bound)
-        log(f"[window] {name}: {keys.numel()} deposits ({n_live} live) "
-            f"into {GRID}^3; max_abs_err f32 {err[torch.float32]:.3e} bf16 "
-            f"{err[torch.bfloat16]:.3e}; kernel {t_k1:.4f}/{t_k2:.4f} ms, "
-            f"plain {t_p1:.4f}/{t_p2:.4f} ms, deposit_add_ {t_add:.4f} ms, "
-            f"one index_add_ call {t_lib:.4f} ms, bound {bound:.4f} ms "
-            f"per call [{card}]")
+        line = (f"[window] {name}: {keys.numel()} deposits ({n_live} live) "
+                f"into {GRID}^3; max_abs_err f32 {err[torch.float32]:.3e} "
+                f"bf16 {err[torch.bfloat16]:.3e}; kernel {t_k1:.4f}/"
+                f"{t_k2:.4f} ms, plain {t_p1:.4f}/{t_p2:.4f} ms, "
+                f"deposit_add_ {t_add:.4f} ms (window over deposit_add_ "
+                f"{min(t_k1, t_k2) / t_add:.3f}), one index_add_ call "
+                f"{t_lib:.4f} ms, bound {bound:.4f} ms per call")
+        log(line + f" [{card}]")
     bad = dep.out_of_range_count(dev) - bad0
     if bad != 0:
         raise AssertionError(f"window kernel: {bad} out-of-range keys")
@@ -618,7 +712,7 @@ def main() -> int:
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
     phase_build()
-    errs, times, bounds = phase_kernel(dev, card)
+    deposit = phase_kernel(dev, card)
     window = phase_window(dev, card)
     window_launches = phase_window_path(dev, card)
     phase_physics(dev, card)
@@ -630,8 +724,8 @@ def main() -> int:
         phase_fluenceless(dev, card)
         phase_detectors_card_vs_cpu(dev, tmp, card)
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
-    # the realistic mix: the shape the main path hands the kernel
-    ms, plain_ms, lib_ms = times["cloud"]
+    # the fluence walk's rows of one megastep of the sphere run, captured
+    jmean = deposit["capture_jmean"]
     tool = window["tool"]
     print(json.dumps({"kernels": [{
         "name": "deposit_add",
@@ -639,12 +733,12 @@ def main() -> int:
         "source": "rsmcrt_tpu_torch/csrc/deposit.cu",
         "replaces": "rsmcrt_tpu/transport/deposit.py:47",
         "launches": launches,
-        "max_abs_err": errs["cloud"],
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bounds["cloud"],
+        "max_abs_err": jmean["err"],
+        "ms": jmean["ms"],
+        "plain_ms": jmean["plain_ms"],
+        "bound_ms": jmean["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": lib_ms,
+        "library_ms": jmean["library_ms"],
     }, {
         "name": "deposit_window",
         "route": "cuda",

@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-Every ``*.cu`` file under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface, loaded with ``ctypes``.
-The library goes to ``build/rsmcrt_tpu_torch/<hash>/`` at the repository
-root, keyed by a hash of the sources and flags, so a fresh checkout builds
-it at first use and later processes reuse it.  Nothing here runs at import
-time.
+Every ``*.cu`` file under ``csrc/`` is compiled by its own ``nvcc`` for
+``sm_90a`` (all started together), and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes``.  The
+library goes to ``build/rsmcrt_tpu_torch/<hash>/`` at the repository root,
+keyed by a hash of the sources, headers and flags, so a fresh checkout
+builds it at first use and later processes reuse it.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "rsmcrt_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _lib = None
 build_log = ""  # nvcc's output of the build that produced the library
@@ -48,7 +50,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / "librsmcrt_kernels.so"
@@ -61,15 +63,31 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    srcs = _sources()
+    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in srcs]
+    tmp = out.with_name(f"{out.name}.{tag}")
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [p.returncode for p in procs if p.returncode != 0]
+    if not failed:
+        res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True,
+                             text=True)
+        logs.append(res.stdout + res.stderr)
+        failed = [res.returncode] if res.returncode != 0 else []
     build_seconds = time.perf_counter() - t0
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
+    build_log = "".join(logs)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{build_log}")
     os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
     return out
 
@@ -84,8 +102,8 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [ptr, ptr, ptr, i64, i64, i32, ptr, ptr]
         fn.restype = ctypes.c_int
         fn = lib.rsmcrt_deposit_window
-        fn.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, i32, i32, i32,
-                       i32, i32, i32, ptr, ptr]
+        fn.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, i32, i32, i32, ptr,
+                       ptr]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib

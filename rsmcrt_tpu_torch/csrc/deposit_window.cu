@@ -3,171 +3,141 @@
 // [nx, ny, nz] grid.
 //
 // Replaces rsmcrt_tpu/transport/deposit.py::_window_kernel (reached through
-// deposit_window_packed).  The TPU kernel walks the chunk's deposits in
-// rounds: each round anchors a wx x wy x wz window on the smallest remaining
+// deposit_window_packed).  The TPU kernel walks each chunk's deposits in
+// rounds: a round anchors a wx x wy x wz window on the smallest remaining
 // key, accumulates every in-window deposit with two one-hot MXU
-// contractions into the VMEM-resident grid, and retires them.  Here the
-// rounds are kept, but the window is a float array in shared memory and
-// the contraction becomes shared-memory atomics:
+// contractions into the VMEM-resident grid, and retires them.  The point
+// of it is that colliding deposits of a chunk reach the grid once.
 //
-// - one block per chunk of `chunk` keys; blocks run in parallel and meet
-//   only in the global float atomics of their flushes;
-// - a round's anchor is the block's min remaining key (block reduction);
-//   the window origin is clamped into the grid as the TPU kernel does;
-// - every remaining deposit inside the window is added into the window
-//   with a shared atomicAdd and retired;
-// - the flush: each retired deposit's thread takes its window cell with
-//   atomicExch(cell, 0); the one that finds it nonzero adds the cell's sum
-//   to the grid with one global atomicAdd.  Colliding deposits of a chunk
-//   (a photon cloud around the source sends many lanes to the same cells)
-//   thus cost one global atomic per distinct cell and round, and the flush
-//   touches only the cells the round used, not the whole window;
-// - after `max_rounds` rounds the deposits still left (a chunk spread over
-//   many windows, e.g. unsorted input) are added by direct global atomics
-//   in the same kernel, so the work per block is bounded.
+// What bounds it on this card: the bytes (each key and value read once, the
+// fresh grid zeroed by the caller and written once), and before them the
+// global float atomics (RED): one per deposit if nothing is merged, and
+// REDs on one address serialise in one L2 slice.  A dense window in shared
+// memory (32^3 floats = 128 KB) would keep one block an SM, spend most of
+// its time zeroing cells no deposit touches, and need rounds with block-wide
+// barriers; unsorted input would run every round.  The caller's zeroing of
+// the fresh grid (32 MB at 200^3, ~0.01 ms on an H100) is a fixed part of
+// every call.
 //
-// What bounds it: the keys and values are read once (8 bytes a deposit)
-// and the grid, zeroed by the caller, is written once; with Morton-sorted
-// input a chunk needs one or two rounds, so the kernel moves little more
-// than those bytes plus one global atomic per distinct cell of a chunk.
+// Design: one block per chunk of `chunk` keys aggregates the chunk in one
+// pass through a shared-memory open-addressing hash table keyed by the flat
+// cell (`slots` = a power of two, about 2x the chunk, at most 4096 slots =
+// 32 KB, so four blocks of 512 threads fit an SM):
+// - each lane takes 4 consecutive keys and values of a warp's window of
+//   128 (one 16-byte int4 and one float4 load when aligned), decodes them,
+//   and merges equal cells inside the thread (runs of a sorted chunk) and
+//   across the warp (warp_combine.cuh), as deposit.cu does;
+// - each group's lowest lane inserts its sum: atomicCAS claims the key
+//   slot (linear probing), atomicAdd adds the value;
+// - a row that finds no slot within PROBES probes (a chunk with more
+//   distinct cells than the table holds) goes straight to the grid with one
+//   RED, so no input needs more than the one pass;
+// - after one barrier, each occupied slot is flushed with one RED.
 //
 // Every non-dead key's value is added, val <= 0 included (the JAX
 // contract: only deposit_window_delta masks val <= 0).  A live key that
 // decodes outside the grid is never written and is counted into *bad (the
 // TPU kernel loops forever on such a key, or drops it when it lies in the
 // y padding).  round_bf16 rounds each value to bfloat16 (nearest even)
-// before the float sum, as dot_dtype=bfloat16 does in the TPU kernel.
+// before any sum, as dot_dtype=bfloat16 does in the TPU kernel.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "warp_combine.cuh"
 
 #define WINDOW_DEAD (1 << 30)
+#define EMPTY_SLOT (-1)
+#define PROBES 32
 
-__device__ __forceinline__ int block_min(int v, int* red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  v = __reduce_min_sync(0xffffffffu, v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < nwarps ? red[lane] : WINDOW_DEAD;
-    w = __reduce_min_sync(0xffffffffu, w);
-    if (lane == 0) red[32] = w;
+// Adds s into the table slot of cell f; false when PROBES probes found
+// neither f nor a free slot.
+__device__ __forceinline__ bool table_add(int* tkey, float* tval,
+                                          int slot_bits, int f, float s) {
+  const unsigned mask = (1u << slot_bits) - 1u;
+  // consecutive cells take consecutive slots, so the flush's REDs from 32
+  // neighbouring slots hit neighbouring cells; each run of 2^slot_bits
+  // cells starts at a scrambled offset
+  const unsigned h = (unsigned)f + ((unsigned)f >> slot_bits) * 2654435761u;
+  for (int p = 0; p < PROBES; ++p) {
+    const unsigned slot = (h + p) & mask;
+    int cur = ((volatile int*)tkey)[slot];
+    if (cur == EMPTY_SLOT) cur = atomicCAS(tkey + slot, EMPTY_SLOT, f);
+    if (cur == EMPTY_SLOT || cur == f) {
+      atomicAdd(tval + slot, s);
+      return true;
+    }
   }
-  __syncthreads();
-  const int out = red[32];
-  __syncthreads();  // red is reused by the next reduction
-  return out;
+  return false;
 }
 
-// Shared memory layout: window [wx*wy*wz] floats, then per-deposit
-// remaining key, value, grid cell and this round's window cell.
-__global__ void deposit_window_kernel(float* __restrict__ out,
-                                      const int32_t* __restrict__ keys,
-                                      const float* __restrict__ val,
-                                      int64_t n, int nx, int ny, int nz,
-                                      int wx, int wy, int wz, int chunk,
-                                      int round_bf16, int max_rounds,
-                                      int32_t* __restrict__ bad) {
-  extern __shared__ float smem[];
-  __shared__ int red[33];
-  const int wcells = wx * wy * wz;
-  float* win = smem;
-  int* key_s = (int*)(win + wcells);
-  float* val_s = (float*)(key_s + chunk);
-  int* flat_s = (int*)(val_s + chunk);
-  int* loc_s = flat_s + chunk;
+// Shared memory: `1 << slot_bits` int keys, then as many float sums.
+__global__ void __launch_bounds__(512)
+    deposit_window_kernel(float* __restrict__ out,
+                          const int32_t* __restrict__ keys,
+                          const float* __restrict__ val, int64_t n, int nx,
+                          int ny, int nz, int chunk, int slot_bits,
+                          int round_bf16, int vec, int32_t* __restrict__ bad) {
+  extern __shared__ int smem[];
+  const int slots = 1 << slot_bits;
+  int* tkey = smem;
+  float* tval = (float*)(smem + slots);
+  for (int s = threadIdx.x; s < slots; s += blockDim.x) {
+    tkey[s] = EMPTY_SLOT;
+    tval[s] = 0.0f;
+  }
+  __syncthreads();
 
   const int64_t base = (int64_t)blockIdx.x * chunk;
-  for (int c = threadIdx.x; c < wcells; c += blockDim.x) win[c] = 0.0f;
-  int local_min = WINDOW_DEAD;
-  for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
-    int k = WINDOW_DEAD;
-    float v = 0.0f;
-    int f = 0;
-    if (base + i < n) {
-      k = keys[base + i];
-      v = val[base + i];
-      if (round_bf16) v = __bfloat162float(__float2bfloat16_rn(v));
-      if (k != WINDOW_DEAD) {
-        const unsigned u = (unsigned)k;
-        const int ix = (int)(u >> 20), iy = (int)((u >> 10) & 1023u),
-                  iz = (int)(u & 1023u);
-        if (ix >= nx || iy >= ny || iz >= nz) {
-          atomicAdd(bad, 1);
-          k = WINDOW_DEAD;
-        } else {
-          f = (ix * ny + iy) * nz + iz;
-        }
-      }
+  const int64_t lim = base + chunk < n ? base + chunk : n;
+  // each warp takes windows of 128 rows (chunk is a multiple of 128)
+  for (int w = threadIdx.x >> 5; w < chunk / 128; w += blockDim.x >> 5) {
+    int32_t f[4];
+    float v[4];
+    bool ok[4];
+    load_lane_rows(keys, val, base + 128 * w, lim, vec != 0, WINDOW_DEAD, f,
+                   v);
+    int nbad = 0;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const unsigned u = (unsigned)f[s];
+      const int ix = (int)(u >> 20), iy = (int)((u >> 10) & 1023u),
+                iz = (int)(u & 1023u);
+      const bool live = f[s] != WINDOW_DEAD;
+      ok[s] = live && ix < nx && iy < ny && iz < nz;
+      nbad += live && !ok[s];
+      f[s] = ok[s] ? (ix * ny + iy) * nz + iz : 0;
+      if (round_bf16) v[s] = round_to_bf16(v[s]);
     }
-    key_s[i] = k;
-    val_s[i] = v;
-    flat_s[i] = f;
-    loc_s[i] = -1;
-    local_min = min(local_min, k);
+    count_bad(nbad, bad);
+    combine4(f, v, ok);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      float sum;
+      if (warp_combine(f[s], v[s], ok[s], &sum) &&
+          !table_add(tkey, tval, slot_bits, f[s], sum))
+        atomicAdd(out + f[s], sum);
+    }
   }
   __syncthreads();
-
-  for (int round = 0; round < max_rounds; ++round) {
-    const int k0 = block_min(local_min, red);
-    if (k0 == WINDOW_DEAD) return;
-    const int rx = k0 >> 20, ry = (k0 >> 10) & 1023, rz = k0 & 1023;
-    const int bx = max(0, min(rx - wx / 2, nx - wx));
-    const int by = max(0, min(ry - wy / 2, ny - wy));
-    const int bz = max(0, min(rz - wz / 2, nz - wz));
-    local_min = WINDOW_DEAD;
-    for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
-      const int k = key_s[i];
-      if (k == WINDOW_DEAD) continue;
-      const int dx = (k >> 20) - bx, dy = ((k >> 10) & 1023) - by,
-                dz = (k & 1023) - bz;
-      if (dx >= 0 && dx < wx && dy >= 0 && dy < wy && dz >= 0 && dz < wz) {
-        const int c = (dx * wy + dy) * wz + dz;
-        atomicAdd(win + c, val_s[i]);
-        loc_s[i] = c;
-        key_s[i] = WINDOW_DEAD;
-      } else {
-        local_min = min(local_min, k);
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
-      const int c = loc_s[i];
-      if (c < 0) continue;
-      loc_s[i] = -1;
-      const float s = atomicExch(win + c, 0.0f);
-      if (s != 0.0f) atomicAdd(out + flat_s[i], s);
-    }
-    __syncthreads();
+  for (int s = threadIdx.x; s < slots; s += blockDim.x) {
+    const int c = tkey[s];
+    if (c != EMPTY_SLOT) atomicAdd(out + c, tval[s]);
   }
-  // round cap reached: the rest go straight to the grid
-  for (int i = threadIdx.x; i < chunk; i += blockDim.x)
-    if (key_s[i] != WINDOW_DEAD) atomicAdd(out + flat_s[i], val_s[i]);
 }
 
-// Launches on `stream`; returns cudaGetLastError() after the launch (or
-// the error of raising the kernel's dynamic shared-memory limit).
+// Launches on `stream`; returns cudaGetLastError() after the launch.
+// `chunk` is a multiple of 128; the table has 1 << slot_bits slots.
 extern "C" int rsmcrt_deposit_window(void* out, const void* keys,
                                      const void* val, int64_t n, int nx,
-                                     int ny, int nz, int wx, int wy, int wz,
-                                     int chunk, int round_bf16,
-                                     int max_rounds, void* bad,
+                                     int ny, int nz, int chunk, int slot_bits,
+                                     int round_bf16, void* bad,
                                      void* stream) {
   if (n <= 0) return 0;
-  // the window's floats and four words per deposit of the chunk
-  const int64_t smem = (int64_t)wx * wy * wz * 4 + (int64_t)chunk * 16;
-  cudaError_t err = cudaFuncSetAttribute(
-      deposit_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = 512;
+  const int threads = chunk / 4 < 512 ? chunk / 4 : 512;
   const int64_t blocks = (n + chunk - 1) / chunk;
-  deposit_window_kernel<<<(unsigned)blocks, threads, (size_t)smem,
+  const size_t smem = (size_t)8 << slot_bits;
+  const int vec = (((uintptr_t)keys | (uintptr_t)val) & 15u) == 0;
+  deposit_window_kernel<<<(unsigned)blocks, threads, smem,
                           (cudaStream_t)stream>>>(
       (float*)out, (const int32_t*)keys, (const float*)val, n, nx, ny, nz,
-      wx, wy, wz, chunk, round_bf16, max_rounds, (int32_t*)bad);
+      chunk, slot_bits, round_bf16, vec, (int32_t*)bad);
   return (int)cudaGetLastError();
 }

@@ -103,6 +103,13 @@ def main(argv=None) -> int:
         print(f"[profile]   {us / dev_us:6.1%}  {us / args.steps / 1e3:8.3f} "
               f"ms/megastep  {count[name] / args.steps:7.0f} launches  "
               f"{name[:90]}")
+    # the port's hand-written kernels (csrc/*.cu) are all deposit kernels
+    deposit = [n for n in by_name if "deposit" in n]
+    dep_us = sum(by_name[n] for n in deposit)
+    print(f"[profile] deposit kernels: {dep_us / args.steps / 1e3:.4f} "
+          f"ms/megastep, {dep_us / dev_us:.3%} of device time, "
+          f"{sum(count[n] for n in deposit) / args.steps:.0f} launches per "
+          f"megastep")
     return 0
 
 

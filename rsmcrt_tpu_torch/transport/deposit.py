@@ -162,11 +162,9 @@ def deposit_delta(grid_shape, x, y, z, val,
 
 # --- the windowed kernel over packed keys ---------------------------------
 
-#: shared memory a block may use on Hopper (227 KB), less the kernel's own
-#: static reduction buffer
-_SMEM_LIMIT = 232_448 - 1024
-#: window rounds per chunk before the rest go straight to the grid
-WINDOW_MAX_ROUNDS = 8
+#: most slots of the window kernel's shared hash table (4096 x 8 bytes =
+#: 32 KB a block, so that four blocks of 512 threads fit an SM)
+MAX_TABLE_SLOTS = 4096
 
 
 def _round_up(a: int, b: int) -> int:
@@ -207,30 +205,25 @@ def deposit_window_packed_plain(grid_shape, keys: torch.Tensor,
     return out.reshape(nx, ny, nz)
 
 
-def _window_dims(grid_shape, chunk, window):
-    """The JAX entry point's checks, then the window clamped to the grid
-    and to the shared memory a block has."""
+def _check_window(grid_shape, chunk, window):
+    """The JAX entry point's checks on the grid, chunk and window."""
     nx, ny, nz = grid_shape
     if max(nx, ny, nz) > 1024:
         raise ValueError("grid dims must be <= 1024 for packed keys")
-    if chunk % 128:
-        raise ValueError(f"chunk={chunk} must be a multiple of 128")
-    wx, wy, wz = window
-    if min(wy, _round_up(ny, 8)) % 8:
-        raise ValueError(f"wy={wy} must be a multiple of 8")
-    wx, wy, wz = min(wx, nx), min(wy, ny), min(wz, nz)
-    # halve the longest side until the window and the chunk's four words
-    # a deposit fit in shared memory
-    while 4 * wx * wy * wz + 16 * chunk > _SMEM_LIMIT:
-        if max(wx, wy, wz) == 1:
-            raise ValueError(f"chunk={chunk} does not fit in shared memory")
-        if wz >= max(wx, wy):
-            wz = -(-wz // 2)
-        elif wy >= wx:
-            wy = -(-wy // 2)
-        else:
-            wx = -(-wx // 2)
-    return wx, wy, wz
+    if chunk <= 0 or chunk % 128:
+        raise ValueError(f"chunk={chunk} must be a positive multiple of 128")
+    if min(window[1], _round_up(ny, 8)) % 8:
+        raise ValueError(f"wy={window[1]} must be a multiple of 8")
+
+
+def table_slot_bits(chunk: int) -> int:
+    """log2 of the slots of the window kernel's shared hash table for a
+    chunk of ``chunk`` keys: the power of two at or above twice the chunk
+    (a table at most half full), at most :data:`MAX_TABLE_SLOTS`.  A chunk
+    with more distinct cells than the table holds sends the rest straight
+    to the grid."""
+    return min((2 * chunk - 1).bit_length(),
+               MAX_TABLE_SLOTS.bit_length() - 1)
 
 
 def deposit_window_packed(grid_shape, keys: torch.Tensor, val: torch.Tensor,
@@ -240,14 +233,17 @@ def deposit_window_packed(grid_shape, keys: torch.Tensor, val: torch.Tensor,
 
     ``keys``: int32 ``[N]`` from :func:`pack_deposit_key` (``_BIG`` =
     dead; rows ordered so that near deposits are adjacent, e.g. lanes
-    sorted by :func:`morton_key_3d`, make fewer window rounds).  ``val``:
+    sorted by :func:`morton_key_3d`, merge more deposits in a block before
+    they reach the grid).  ``val``:
     float32 ``[N]``; every live key's value is added, ``val <= 0``
     included.  On a CUDA tensor this launches ``csrc/deposit_window.cu``
-    (one block per ``chunk`` keys, a ``window`` of floats in shared
-    memory); on a CPU tensor it runs
-    :func:`deposit_window_packed_plain`."""
+    (one block per ``chunk`` keys, summed in a shared hash table of
+    ``2 ** table_slot_bits(chunk)`` slots); on a CPU tensor it runs
+    :func:`deposit_window_packed_plain`.  ``window`` is checked as the JAX
+    entry point checks it and kept for parity; it no longer sizes
+    anything."""
     global window_kernel_launches, window_plain_calls
-    wx, wy, wz = _window_dims(grid_shape, chunk, window)
+    _check_window(grid_shape, chunk, window)
     round_bf16 = _round_bf16(dot_dtype)
     if keys.dtype != torch.int32 or val.dtype != torch.float32:
         raise TypeError("keys must be int32 and val float32")
@@ -273,8 +269,8 @@ def deposit_window_packed(grid_shape, keys: torch.Tensor, val: torch.Tensor,
     lib = _build.load()
     with torch.cuda.device(dev):
         rc = lib.rsmcrt_deposit_window(
-            out.data_ptr(), k.data_ptr(), v.data_ptr(), n, nx, ny, nz, wx,
-            wy, wz, chunk, int(round_bf16), WINDOW_MAX_ROUNDS,
+            out.data_ptr(), k.data_ptr(), v.data_ptr(), n, nx, ny, nz,
+            chunk, table_slot_bits(chunk), int(round_bf16),
             _bad_counter(dev).data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

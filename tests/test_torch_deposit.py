@@ -186,3 +186,85 @@ def test_cuda_kernel_matches_plain(cuda_device):
     # sum of ~2.6e5 terms differs by rounding between the two orders
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
     assert tdep.out_of_range_count(cuda_device) == 0
+
+
+def _design_case(case, rng):
+    """Rows aimed at the warp-combining kernel's paths: cell count, int32
+    indices, float32 values (100,003 rows: the last 4-row group is
+    short)."""
+    n_cells = 64 ** 3
+    n = 100_003
+    if case == "one_cell":
+        idx = np.full(n, 4321)
+        val = rng.uniform(0.0, 1.0, n)
+    elif case == "distinct":
+        idx = rng.permutation(n_cells)[:n]
+        val = rng.uniform(0.0, 1.0, n)
+    elif case == "runs":  # equal indices across threads, slots and warps
+        idx = np.repeat(rng.integers(0, n_cells, n),
+                        rng.integers(1, 10, n))[:n]
+        val = rng.uniform(0.0, 1.0, n)
+    else:  # a few hot cells, NaN and negative values
+        idx = rng.integers(0, 40, n)
+        val = rng.uniform(-1.0, 1.0, n)
+        val[rng.uniform(size=n) < 0.05] = np.nan
+    return (n_cells, torch.as_tensor(idx.astype(np.int32)),
+            torch.as_tensor(val.astype(np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["one_cell", "distinct", "runs",
+                                  "nan_negative"])
+def test_cuda_kernel_designs_match_plain(cuda_device, case, dtype, offset):
+    """One cell, all distinct, runs of equal indices, NaN and negative
+    values; ``offset`` 1 makes misaligned views (the scalar loads).  rtol
+    1e-4 of the largest cell, as chip_smoke.py phase 3 (1e-3 for one cell
+    of 100,000 terms, against a float64 sum too)."""
+    n_cells, idx, val = _design_case(case, np.random.default_rng(41))
+    idx, val = idx[offset:], val[offset:]
+    tdt = getattr(torch, dtype)
+    want = tdep.deposit_add_plain(torch.zeros(n_cells), idx, val, tdt)
+    before = tdep.deposit_kernel_launches
+    got = tdep.deposit_add_(torch.zeros(n_cells, device=cuda_device),
+                            idx.to(cuda_device), val.to(cuda_device),
+                            tdt).cpu()
+    assert tdep.deposit_kernel_launches == before + 1
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    rtol = 1e-3 if case == "one_cell" else 1e-4
+    assert err <= rtol * scale, (err, scale)
+    if case == "one_cell" and dtype == "float32":
+        ref = float(val.double().clamp(min=0.0).sum())
+        assert abs(float(got[4321]) - ref) <= 1e-3 * ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_kernel_counts_each_bad_row(cuda_device, offset):
+    """Live rows with an index outside the tally are counted once a row,
+    also when a warp's rows share the bad index; rows with val <= 0 are
+    not counted; nothing is written for them."""
+    rng = np.random.default_rng(42)
+    n_cells, n = 1000, 4099
+    idx = rng.integers(0, n_cells, n).astype(np.int32)
+    val = rng.uniform(0.1, 1.0, n).astype(np.float32)
+    idx[64:128] = -3  # one bad index shared by a warp's rows
+    idx[200:204] = n_cells  # four in one thread
+    idx[1000::97] = n_cells + 12345
+    val[64:80] = 0.0  # dead under a bad index: not counted
+    val[1000::194] = -1.0
+    ti, tv = torch.as_tensor(idx)[offset:], torch.as_tensor(val)[offset:]
+    bad = ((ti < 0) | (ti >= n_cells)) & (tv > 0)
+    before = tdep.out_of_range_count(cuda_device)
+    got = tdep.deposit_add_(torch.zeros(n_cells, device=cuda_device),
+                            ti.to(cuda_device), tv.to(cuda_device))
+    torch.cuda.synchronize(cuda_device)
+    assert tdep.out_of_range_count(cuda_device) == before + int(bad.sum())
+    want = tdep.deposit_add_plain(torch.zeros(n_cells),
+                                  torch.where(bad, 0, ti),
+                                  torch.where(bad, 0.0, tv))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    # leave the card's count at 0 for the tests that read it whole
+    tdep._bad_counter(cuda_device).zero_()

@@ -207,11 +207,23 @@ def test_window_entry_point_checks_like_the_reference():
         tdep.deposit_window_packed((8, 8, 8), k, v, chunk=100)
     with pytest.raises(ValueError, match="wy"):
         tdep.deposit_window_packed((64, 64, 64), k, v, window=(32, 12, 32))
+    with pytest.raises(ValueError, match="chunk"):
+        tdep.deposit_window_packed((8, 8, 8), k, v, chunk=0)
     with pytest.raises(TypeError):
         tdep.deposit_window_packed((8, 8, 8), k.long(), v)
-    # a window too large for shared memory is shrunk, not refused
-    assert tdep._window_dims((512, 512, 512), 2048, (64, 64, 64)) == (
-        32, 32, 32)
+    # a window larger than the grid or shared memory is not refused: it
+    # sizes nothing; the kernel's hash table is sized by the chunk
+    got = tdep.deposit_window_packed((8, 8, 8), k, v, window=(64, 64, 64))
+    assert float(got.sum()) == 4.0
+
+
+@pytest.mark.parametrize("chunk,bits", [(128, 8), (256, 9), (1536, 12),
+                                        (2048, 12), (16384, 12)])
+def test_table_slots_hold_twice_the_chunk_up_to_the_cap(chunk, bits):
+    assert tdep.table_slot_bits(chunk) == bits
+    slots = 1 << bits
+    assert slots >= 2 * chunk or slots == tdep.MAX_TABLE_SLOTS
+    assert slots <= tdep.MAX_TABLE_SLOTS
 
 
 @pytest.mark.cuda
@@ -275,3 +287,99 @@ def test_cuda_deposit_add_bf16_matches_plain(cuda_device):
                             torch.bfloat16)
     torch.cuda.synchronize(cuda_device)
     _close(got.cpu().numpy(), want.numpy())
+
+
+def _window_design_case(case, rng):
+    """Inputs aimed at the hash-table kernel's paths: keys, values, grid
+    and chunk."""
+    shape = (50, 60, 70)
+    cells = int(np.prod(shape))
+    chunk = 2048
+    n = 50_001  # not a multiple of 4: the last group is short
+    if case == "one_cell":
+        flat = np.full(n, 12345)
+    elif case == "distinct":
+        flat = rng.permutation(cells)[:n]
+    elif case == "overflow":
+        # every chunk holds more distinct cells than the table's 4096 slots
+        chunk = 16384
+        n = 3 * chunk + 5
+        flat = rng.permutation(cells)[:n]
+    else:  # runs of equal cells across threads, slots and warps
+        flat = np.repeat(rng.integers(0, cells, n), rng.integers(1, 10, n))[:n]
+    x, y, z = np.unravel_index(flat, shape)
+    val = rng.uniform(-1.0, 1.0, n).astype(np.float32)
+    live = np.ones(n, bool)
+    if case == "runs_nan_negative":
+        val[rng.uniform(size=n) < 0.05] = np.nan
+        live = rng.uniform(size=n) > 0.2
+        x = np.where(live, x, -7)  # garbage coordinates under dead keys
+    keys = tdep.pack_deposit_key(_i32(x), _i32(y), _i32(z),
+                                 torch.as_tensor(live))
+    return shape, keys, torch.as_tensor(val), chunk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", ["one_cell", "distinct", "overflow",
+                                  "runs_nan_negative"])
+def test_cuda_window_hash_table_matches_plain(cuda_device, case, dtype,
+                                              offset):
+    """One cell, all distinct, more distinct cells than table slots, runs
+    with NaN and negative values; ``offset`` 1 makes misaligned views (the
+    scalar loads).  rtol 1e-4 of the largest cell (1e-3 for one cell of
+    50,000 terms, against a float64 sum too)."""
+    shape, keys, val, chunk = _window_design_case(
+        case, np.random.default_rng(31))
+    keys, val = keys[offset:], val[offset:]
+    tdt = DTYPES[dtype]
+    want = tdep.deposit_window_packed_plain(shape, keys, val, tdt)
+    kd, vd = keys.to(cuda_device), val.to(cuda_device)
+    before = tdep.window_kernel_launches
+    got = tdep.deposit_window_packed(shape, kd, vd, chunk=chunk,
+                                     dot_dtype=tdt).cpu()
+    assert tdep.window_kernel_launches == before + 1
+    np.testing.assert_array_equal(np.isnan(got.numpy()),
+                                  np.isnan(want.numpy()))
+    fin = torch.isfinite(want)
+    err = float((got[fin] - want[fin]).abs().max())
+    scale = float(want[fin].abs().max())
+    rtol = 1e-3 if case == "one_cell" else 1e-4
+    assert err <= rtol * scale, (err, scale)
+    if case == "one_cell" and dtype == "float32":
+        ref = float(val.double().sum())
+        assert abs(float(got.sum()) - ref) <= 1e-3 * abs(ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_window_counts_each_bad_key(cuda_device, offset):
+    """Live keys outside the grid are counted once a row, also when a
+    warp's rows share the bad key; dead keys are not counted."""
+    rng = np.random.default_rng(32)
+    shape = (20, 30, 40)
+    n = 4099
+    x, y, z = (rng.integers(0, s, n) for s in shape)
+    x[64:128] = 20  # one bad key shared by a warp's rows
+    z[300:304] = 45  # four in one thread
+    y[1000::97] = 1000
+    live = np.ones(n, bool)
+    live[64:80] = False  # dead under a bad key: not counted
+    keys = tdep.pack_deposit_key(_i32(x), _i32(y), _i32(z),
+                                 torch.as_tensor(live))[offset:]
+    val = torch.as_tensor(rng.uniform(0.1, 1.0, n).astype(np.float32))
+    val = val[offset:]
+    inside = (x < 20) & (y < 30) & (z < 40)
+    n_bad = int((live & ~inside)[offset:].sum())
+    before = tdep.out_of_range_count(cuda_device)
+    got = tdep.deposit_window_packed(shape, keys.to(cuda_device),
+                                     val.to(cuda_device), chunk=256)
+    torch.cuda.synchronize(cuda_device)
+    assert tdep.out_of_range_count(cuda_device) == before + n_bad
+    before_cpu = tdep.out_of_range_count("cpu")
+    want = tdep.deposit_window_packed_plain(shape, keys, val)
+    assert tdep.out_of_range_count("cpu") == before_cpu + n_bad
+    _close(got.cpu().numpy(), want.numpy())
+    # leave the card's count at 0 for the tests that read it whole
+    tdep._bad_counter(cuda_device).zero_()
