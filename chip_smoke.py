@@ -20,8 +20,9 @@ Phases (each raises on failure; the exit code is non-zero on any):
    photons) on the card and on the CPU; the kernel path and the plain path
    must tally the same physics (nscatt within 1.0, path length within 2%,
    radial fluence within 10%).
-6. the slice at full size: ``kernels.default_MCRT("res/sphere.toml")``,
-   1,000,000 photons, 32768 lanes, 200^3 grid, with every deposit counted.
+6. the slice at full width: ``kernels.default_MCRT("res/sphere.toml")``,
+   32768 lanes, 200^3 grid, cut from 1,000,000 photons to 500,000, with
+   every deposit counted.
 7. window kernel against plain: ``deposit_window_packed`` against its
    plain twin on three inputs (the deposit-window tool's workload of
    524,288 Morton-sorted deposits, phase 3's cloud mix packed and
@@ -39,6 +40,24 @@ Phases (each raises on failure; the exit code is non-zero on any):
     emission, at 2,000,000 photons (the bench runs 32M).
 11. detectors, card against CPU: ``res/test_dects.toml`` (circle, annulus,
     camera) cut to 20,000 photons on 64^3 with the fluence estimator on.
+12. omg at full width: ``kernels.default_MCRT("res/omg.toml")`` (a
+    smooth-union CSG model of a torus and nine cylinders, a uniform
+    source, the 200^3 grid, 32768 lanes), every probe marched, cut from
+    500,000 photons to 131,072 and at most 30 megasteps (a photon
+    launched within eps of a grid face creeps along it at ~3e-5 a
+    megastep, as in the reference); launches equal the photons asked
+    for, the emission sums to them, the tallies are finite and
+    non-negative, the fluence volume is written and every deposit went
+    through the kernel.
+13. omg, card against CPU: res/omg.toml cut to 32^3 and 16,000 photons on
+    the card and on the CPU (plain deposits); nscatt/photon, path/photon
+    and a coarse fluence profile must agree.  The CPU run takes about as
+    long as the card's omg run, so it runs in a child process started
+    before phase 4, beside the card's gate phases 4, 5 and 11.
+14. the other scenes on the card: res/lens.toml, res/exp.toml and
+    res/aptran.toml cut to 64^3 and 20,000 photons, res/egg_test.toml to
+    32^3, 10,000 photons and at most 8 megasteps (~5 s each); launches
+    equal the photons asked for, the tallies are finite.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -63,6 +82,7 @@ SPHERE = ROOT / "res" / "sphere.toml"
 SCAT = ROOT / "res" / "scat_test.toml"
 SLAB = ROOT / "res" / "validation1.toml"
 DECTS = ROOT / "res" / "test_dects.toml"
+OMG = ROOT / "res" / "omg.toml"
 N_LANES, K, GRID = 32768, 64, 200
 #: H100 SXM device memory rate, bytes/s (NVIDIA data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -468,7 +488,7 @@ def phase_window_path(dev, card):
 
 def _reduced(tmp: Path, name: str, grid: int, nphotons: int):
     text = (ROOT / "res" / name).read_text()
-    text = re.sub(r"n([xyz])g = 200", rf"n\1g = {grid}", text)
+    text = re.sub(r"n([xyz])g = \d+", rf"n\1g = {grid}", text)
     text = re.sub(r"nphotons = \d+", f"nphotons = {nphotons}", text)
     path = tmp / f"reduced_{name}"
     path.write_text(text)
@@ -523,7 +543,16 @@ def phase_card_vs_cpu(dev, tmp, card):
         raise AssertionError("card and CPU disagree")
 
 
-def phase_slice(dev, tmp, card):
+def _check_tallies(tl, n_cells, what):
+    for name in ("jmean", "absorb", "emission"):
+        t = getattr(tl, name)
+        if t.shape != (n_cells,) or not bool(torch.isfinite(t).all()) \
+                or float(t.min()) < 0.0:
+            raise AssertionError(f"{what}: tally {name} is not "
+                                 "finite/non-negative")
+
+
+def phase_slice(dev, tmp, card, n=500_000):
     from rsmcrt_tpu_torch import kernels
     from rsmcrt_tpu_torch.transport import deposit as dep
 
@@ -532,12 +561,13 @@ def phase_slice(dev, tmp, card):
     dep.reset_counts()
     with contextlib.chdir(tmp):  # the run's checkpoint file lands here
         res = kernels.default_MCRT(SPHERE, data_dir=tmp / "data",
-                                   verbose=False, device=dev)
+                                   nphotons=n, verbose=False, device=dev)
     launches, plain = dep.deposit_kernel_launches, dep.deposit_plain_calls
     peak = torch.cuda.max_memory_allocated(dev)
     tl = res.tallies
     cfg = kernels.fast_path_defaults(device=dev)
-    log(f"[slice] res/sphere.toml: {res.launched} photons, "
+    log(f"[slice] res/sphere.toml: {res.launched} photons (cut from "
+        f"1,000,000), "
         f"{res.steps} megasteps, {res.elapsed:.2f} s wall, "
         f"{res.photons_per_second:.1f} photons/s, peak device memory "
         f"{peak / 2**20:.1f} MiB, nscatt/photon "
@@ -545,14 +575,10 @@ def phase_slice(dev, tmp, card):
         f"{cfg['dda_substeps']}, chain_respawns {cfg['chain_respawns']} "
         f"[{card}]")
     log(f"[slice] deposit kernel launches {launches}, plain calls {plain}")
-    if res.launched != 1_000_000:
+    if res.launched != n:
         raise AssertionError(f"launched {res.launched}")
-    for name in ("jmean", "absorb", "emission"):
-        t = getattr(tl, name)
-        if t.shape != (GRID ** 3,) or not bool(torch.isfinite(t).all()) \
-                or float(t.min()) < 0.0:
-            raise AssertionError(f"tally {name} is not finite/non-negative")
-    if float(tl.emission.sum()) != 1_000_000:
+    _check_tallies(tl, GRID ** 3, "sphere")
+    if float(tl.emission.sum()) != n:
         raise AssertionError("emission does not count every launch")
     if launches <= 0 or plain != 0:
         raise AssertionError("the main path did not run the deposit kernel")
@@ -702,6 +728,163 @@ def phase_detectors_card_vs_cpu(dev, tmp, card):
         raise AssertionError("card and CPU detectors disagree")
 
 
+def phase_omg(dev, tmp, card, n=131_072, max_steps=30):
+    """The marched chained walk at full width: res/omg.toml on the 200^3
+    grid through ``kernels.default_MCRT``, cut from 500,000 photons to
+    ``n`` and at most ``max_steps`` megasteps."""
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.transport import deposit as dep
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dep.reset_counts()
+    with contextlib.chdir(tmp):  # the run's checkpoint file lands here
+        res = kernels.default_MCRT(OMG, data_dir=tmp / "omg", nphotons=n,
+                                   verbose=False, device=dev,
+                                   max_steps=max_steps)
+    launches, plain = dep.deposit_kernel_launches, dep.deposit_plain_calls
+    peak = torch.cuda.max_memory_allocated(dev)
+    tl = res.tallies
+    log(f"[omg] res/omg.toml: {res.launched} photons (cut from 500,000), "
+        f"{res.steps} megasteps (at most {max_steps}), "
+        f"{res.elapsed:.2f} s wall, "
+        f"{res.photons_per_second:.1f} photons/s, peak device memory "
+        f"{peak / 2**20:.1f} MiB, nscatt/photon {res.nscatt_per_photon:.4f}, "
+        f"path/photon {float(tl.jmean.double().sum()) / res.launched:.5f}, "
+        f"lanes {kernels.default_lanes(n, dev)} [{card}]")
+    log(f"[omg] deposit kernel launches {launches}, plain calls {plain}")
+    if res.launched != n:
+        raise AssertionError(f"omg launched {res.launched}")
+    _check_tallies(tl, GRID ** 3, "omg")
+    if float(tl.emission.sum()) != n:
+        raise AssertionError("omg: emission does not count every launch")
+    if launches <= 0 or plain != 0:
+        raise AssertionError("the omg path did not run the deposit kernel")
+    if dep.out_of_range_count(dev) != 0:
+        raise AssertionError("out-of-range deposits on the omg path")
+    if not (tmp / "omg" / "jmean" / "fluence.nrrd").exists():
+        raise AssertionError("omg: no fluence volume written")
+    return launches
+
+
+def _slab_profile(jmean, g, n):
+    """Fluence per photon in 4 slabs along z (the beam's axis) and 4 x 4
+    columns across it: the coarse shape of the omg fluence."""
+    jm = jmean.double().cpu().numpy().reshape(g, g, g) / n
+    q = g // 4
+    z = jm.reshape(g, g, 4, q).sum(axis=(0, 1, 3))
+    xy = jm.reshape(4, q, 4, q, g).sum(axis=(1, 3, 4)).reshape(-1)
+    return np.concatenate([z, xy])
+
+
+OMG_G, OMG_N = 32, 16_000
+
+
+def _omg_reduced(toml, d, cap):
+    """res/omg.toml cut to ``OMG_G``^3 and ``OMG_N`` photons on device
+    ``d``: ``[nscatt/photon, path/photon, wall s, megasteps, coarse
+    profile...]``."""
+    from rsmcrt_tpu_torch import kernels
+
+    res = kernels.run_MCRT(*kernels.setup(toml, device=d), n_lanes=4096,
+                           max_steps=cap)
+    if res.launched != OMG_N:
+        raise AssertionError(f"omg {d}: launched {res.launched}")
+    _check_tallies(res.tallies, OMG_G ** 3, f"omg {d}")
+    return np.concatenate([
+        [res.nscatt_per_photon,
+         float(res.tallies.jmean.double().sum()) / OMG_N, res.elapsed,
+         res.steps], _slab_profile(res.tallies.jmean, OMG_G, OMG_N)])
+
+
+def _omg_cpu_child(toml, out):
+    """Phase 13's CPU run, in a child process; the result goes to ``out``
+    (a .npy file).  At 4096 lanes its ops are too small to use many
+    threads, so two leave the card's host thread its cores."""
+    torch.set_num_threads(2)
+    # the CPU's K = 8 rounds a megastep take 1/8 of the card's K = 64
+    np.save(out, _omg_reduced(toml, torch.device("cpu"), 200))
+
+
+def start_omg_cpu(tmp):
+    """Start phase 13's CPU run in a child process (spawned, so it shares
+    no CUDA state with this one); returns the process, its result file
+    and the reduced config that both runs read."""
+    import multiprocessing
+
+    toml = _reduced(tmp, "omg.toml", OMG_G, OMG_N)
+    out = tmp / "omg_cpu.npy"
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_omg_cpu_child, args=(toml, out), daemon=True)
+    proc.start()
+    return proc, out, toml
+
+
+def phase_omg_card_vs_cpu(card, dev, cpu_run):
+    """res/omg.toml cut to 32^3 and 16,000 photons on the card and on the
+    CPU (``cpu_run`` from :func:`start_omg_cpu`).  Path/photon is nearly
+    all the beam's straight flight through the vacuum (2.0 per photon):
+    within 1%.  A coarse profile cell (4 slabs along the beam, 4 x 4
+    columns across it) holding a share ``f`` of the path gets the photons
+    that enter it, a binomial count: the two runs may differ by 4 standard
+    deviations of that count, ``4 sqrt(2 (1 - f) / (n f))`` (17% for a
+    column, 8% for a slab).  nscatt/photon comes from the few photons
+    trapped in the n = 2.65 letters and spreads widely between seeds
+    (tests/test_torch_omg.py): within 0.05."""
+    n = OMG_N
+    proc, out, toml = cpu_run
+    # the megastep cap bounds a run that draws a face creeper (phase 12)
+    ns_c, path_c, t_c, s_c, *prof_c = _omg_reduced(toml, dev, 24)
+    proc.join()
+    if proc.exitcode != 0:
+        raise AssertionError(f"omg CPU run exited with {proc.exitcode}")
+    ns_h, path_h, t_h, s_h, *prof_h = np.load(out)
+    prof_c, prof_h = np.asarray(prof_c), np.asarray(prof_h)
+    rel = np.abs(prof_c - prof_h) / np.maximum(prof_h, 1e-9)
+    share = np.concatenate([prof_h[:4] / prof_h[:4].sum(),
+                            prof_h[4:] / prof_h[4:].sum()])
+    tol = 4.0 * np.sqrt(2.0 * (1.0 - share) / (n * share))
+    log(f"[omg-card-vs-cpu] {OMG_G}^3, {n} photons: nscatt {ns_c:.4f} vs "
+        f"{ns_h:.4f}; path/photon {path_c:.5f} vs {path_h:.5f}; coarse "
+        f"profile rel diff / tolerance: slabs max {rel[:4].max():.4f} / "
+        f"{tol[:4].min():.4f}, columns max {rel[4:].max():.4f} / "
+        f"{tol[4:].min():.4f}; {s_c:.0f} vs {s_h:.0f} megasteps; wall "
+        f"{t_c:.2f} s (card) vs {t_h:.2f} s (CPU, in a child process) "
+        f"[{card}]")
+    if abs(ns_c - ns_h) >= 0.05 or abs(path_c - path_h) / path_h >= 0.01 \
+            or not np.all(rel < tol):
+        raise AssertionError("omg: card and CPU disagree")
+
+
+def phase_scenes(dev, tmp, card):
+    """egg_test (cut to 32^3, 10,000 photons and at most 8 megasteps of ~5
+    s: it needs 5), lens, exp and aptran (64^3, 20,000 photons, at most 40
+    megasteps) on the card."""
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.transport import deposit as dep
+
+    for name, g, n, cap in (("egg_test.toml", 32, 10_000, 8),
+                            ("lens.toml", 64, 20_000, 40),
+                            ("exp.toml", 64, 20_000, 40),
+                            ("aptran.toml", 64, 20_000, 40)):
+        toml = _reduced(tmp, name, g, n)
+        dep.reset_counts()
+        res = kernels.run_MCRT(*kernels.setup(toml, device=dev),
+                               max_steps=cap)
+        if res.launched != n:
+            raise AssertionError(f"{name}: launched {res.launched}")
+        _check_tallies(res.tallies, g ** 3, name)
+        log(f"[scenes] res/{name} at {g}^3: {res.launched} photons, "
+            f"{res.steps} megasteps, {res.elapsed:.2f} s, "
+            f"{res.photons_per_second:.1f} photons/s, nscatt/photon "
+            f"{res.nscatt_per_photon:.4f}, path/photon "
+            f"{float(res.tallies.jmean.double().sum()) / n:.4f}, deposit "
+            f"kernel launches {dep.deposit_kernel_launches}, plain calls "
+            f"{dep.deposit_plain_calls} [{card}]")
+        if dep.deposit_kernel_launches <= 0 or dep.deposit_plain_calls != 0:
+            raise AssertionError(f"{name} did not run the deposit kernel")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -715,14 +898,24 @@ def main() -> int:
     deposit = phase_kernel(dev, card)
     window = phase_window(dev, card)
     window_launches = phase_window_path(dev, card)
-    phase_physics(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        phase_card_vs_cpu(dev, tmp, card)
-        launches = phase_slice(dev, tmp, card)
-        phase_validation(dev, tmp, card)
-        phase_fluenceless(dev, card)
-        phase_detectors_card_vs_cpu(dev, tmp, card)
+        omg_cpu = start_omg_cpu(tmp)
+        try:
+            # the gate phases run beside the child's CPU run, the measured
+            # runs (sphere, slab, bench path, omg) mostly after it
+            phase_physics(dev, card)
+            phase_card_vs_cpu(dev, tmp, card)
+            phase_detectors_card_vs_cpu(dev, tmp, card)
+            launches = phase_slice(dev, tmp, card)
+            phase_validation(dev, tmp, card)
+            phase_fluenceless(dev, card)
+            launches += phase_omg(dev, tmp, card)
+            phase_omg_card_vs_cpu(card, dev, omg_cpu)
+            phase_scenes(dev, tmp, card)
+        finally:
+            omg_cpu[0].kill()
+            omg_cpu[0].join()
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     # the fluence walk's rows of one megastep of the sphere run, captured
     jmean = deposit["capture_jmean"]

@@ -3,9 +3,9 @@
 Parses the ``[source]``, ``[grid]``, ``[geometry]``, ``[[detectors]]``,
 ``[output]`` and ``[simulation]`` tables with the reference's defaults and
 error cases.  Parts the port does not run yet raise
-``NotImplementedError`` naming their ROADMAP item: source kinds other than
-``point`` and ``pencil``, spectra other than ``constant`` and the escape /
-inverse kernels' tables.
+``NotImplementedError`` naming their ROADMAP item: the ``dslit``,
+``aperture`` and ``slm`` sources, spectra other than ``constant`` and the
+escape / inverse kernels' tables.
 """
 
 from __future__ import annotations
@@ -97,36 +97,76 @@ def _parse_spectrum(table, device):
                       "['constant', '1D', '2D']")
 
 
+_CARDINALS = {"x": (1.0, 0.0, 0.0), "-x": (-1.0, 0.0, 0.0),
+              "y": (0.0, 1.0, 0.0), "-y": (0.0, -1.0, 0.0),
+              "z": (0.0, 0.0, 1.0), "-z": (0.0, 0.0, -1.0)}
+
+
 def _parse_source(cfg: dict, settings: Settings, device):
-    """reference: parse_source.f90:17-264 (point and pencil sources)"""
+    """reference: parse_source.f90:17-264 (the point, pencil, uniform,
+    circular, focus and annulus sources)"""
     table = cfg.get("source")
     if table is None:
         raise ConfigError("Simulation needs Source table")
     name = table.get("name", "point")
     settings.source = name
     settings.nphotons = int(table.get("nphotons", 1_000_000))
-    if name not in ("point", "pencil"):
+    if name in ("dslit", "aperture", "slm"):
         raise NotImplementedError(
-            f"source {name!r} is not ported (ROADMAP queue 1, item 4: "
-            "sources)")
-    pos = _get_vector(table, "position", "source")
+            f"source {name!r} is not ported (ROADMAP queue 1, item 10: "
+            "plain walk and phasor)")
+
+    pos = None
+    if name != "uniform":
+        pos = _get_vector(table, "position", "source")
+
+    rotation = None
+    if name not in ("uniform", "point", "circular", "pencil"):
+        if "rotation" not in table:
+            raise ConfigError("Source requires rotation variable")
+        rotation = _get_vector(table, "rotation", "source")
+        if np.linalg.norm(rotation) < 1e-8:
+            raise ConfigError(
+                "Need to specify rotation that has length greater than 0.0")
+        rotation = rotation / np.linalg.norm(rotation)
+
+    direction = None
     raw_dir = table.get("direction")
-    if isinstance(raw_dir, list):
-        direction = _get_vector(table, "direction", "source")
-    elif isinstance(raw_dir, str):
-        cardinals = {"x": (1, 0, 0), "-x": (-1, 0, 0), "y": (0, 1, 0),
-                     "-y": (0, -1, 0), "z": (0, 0, 1), "-z": (0, 0, -1)}
-        if raw_dir not in cardinals:
+    if isinstance(raw_dir, str):
+        if raw_dir not in _CARDINALS:
             raise ConfigError(
                 "Direction needs a cardinal direction i.e x, y, or z")
-        direction = np.asarray(cardinals[raw_dir], np.float64)
-    elif name == "point":
-        direction = np.asarray([0.0, 0.0, 1.0])
-    else:
+        direction = np.asarray(_CARDINALS[raw_dir])
+    elif isinstance(raw_dir, list):
+        direction = _get_vector(table, "direction", "source")
+    elif name not in ("point", "annulus", "focus"):
         raise ConfigError("Need to specify direction for source type!")
+
+    points = {}
+    for pkey in ("point1", "point2", "point3"):
+        if pkey in table:
+            points[pkey] = _get_vector(table, pkey, "source")
+        elif name == "uniform":
+            raise ConfigError(f"Uniform source requires {pkey} variable")
+
     spectrum = _parse_spectrum(table, device)
-    src = build_source(name, spectrum=spectrum, device=device, position=pos,
-                       direction=direction)
+    kwargs = dict(
+        position=pos, direction=direction,
+        radius=float(table.get("radius", 0.5)),
+        focalLength=float(table.get("focalLength", 1.0)),
+        rhi=float(table.get("rhi", 0.6)), rlo=float(table.get("rlo", 0.5)),
+        sigma=float(table.get("sigma", 0.04)),
+        beam_size=float(table.get("beam_size", 0.5)),
+        rotation=rotation, **points)
+    if name == "annulus":
+        kwargs["annulus_type"] = table.get("annulus_type", "gaussian")
+    if name == "focus":
+        kwargs["focus_type"] = table.get("focus_type", "gaussian")
+    if name == "point" and direction is None:
+        kwargs["direction"] = np.asarray([0.0, 0.0, 1.0])
+    if direction is None and name in ("annulus", "focus"):
+        kwargs["direction"] = np.asarray([0.0, 0.0, -1.0])
+    src = build_source(name, spectrum=spectrum, device=device, **kwargs)
     return src, spectrum
 
 
@@ -144,8 +184,8 @@ def _parse_grid(cfg: dict, settings: Settings, device):
 
 
 def _parse_geometry(cfg: dict, settings: Settings):
-    """reference: parse_geometry.f90:17-292 (the keys the ported scenes
-    read)"""
+    """reference: parse_geometry.f90:17-292.  Returns the scene parameter
+    dict keyed like the reference's metadata dict."""
     table = cfg.get("geometry")
     if table is None:
         raise ConfigError("Need geometry table in input param file")
@@ -159,6 +199,8 @@ def _parse_geometry(cfg: dict, settings: Settings):
         raise ConfigError("For geometry of sphere must set numOptProp to one")
     if settings.experiment == "box" and num != 1:
         raise ConfigError("For geometry of box must set numOptProp to one")
+    if settings.experiment == "egg" and num != 3:
+        raise ConfigError("For geometry of egg must set numOptProp to three")
 
     def opt_array(key, default):
         if key in table:
@@ -177,6 +219,12 @@ def _parse_geometry(cfg: dict, settings: Settings):
         "hgg": opt_array("hgg", 0.0),
         "n": opt_array("n", 1.0),
         "tau": float(table.get("tau", 10.0)),
+        "num_spheres": int(table.get("num_spheres", 10)),
+        "musb": float(table.get("musb", 0.0)),
+        "muab": float(table.get("muab", 0.01)),
+        "musc": float(table.get("musc", 0.0)),
+        "muac": float(table.get("muac", 0.01)),
+        "hgga": float(table.get("hgga", 0.7)),
     }
     params["position"] = list(_get_vector(table, "position", "geometry",
                                           default=[0.0, 0.0, 0.0]))
@@ -187,6 +235,15 @@ def _parse_geometry(cfg: dict, settings: Settings):
     if settings.experiment == "box":
         params["BoxDimensions"] = list(_get_vector(
             table, "BoxDimensions", "geometry", default=[1.0, 1.0, 1.0]))
+    if settings.experiment == "egg":
+        default_top = 3.0 * np.sqrt(2.0 - np.sqrt(2.0))
+        params["BottomSphereRadius"] = float(
+            table.get("BottomSphereRadius", 3.0))
+        params["TopSphereRadius"] = float(
+            table.get("TopSphereRadius", default_top))
+        params["SphereSep"] = float(table.get("SphereSep", default_top))
+        params["ShellThickness"] = float(table.get("ShellThickness", 0.05))
+        params["YolkRadius"] = float(table.get("YolkRadius", 1.5))
     return params
 
 

@@ -17,7 +17,8 @@ import torch
 from .detectors import detectors as D
 from .grid import CartGrid
 from .optics.piecewise import Constant
-from .sdfs.scene import PrimSpec, Scene, SceneTables
+from .sdfs.scene import (VECTOR_PARAMS, PrimSpec, Scene,
+                          SceneTables)
 from .sources.sources import Source
 from .tally import Tallies
 from .transport.engine import LaneState, SimCarry
@@ -33,16 +34,58 @@ def grid_from_numpy(g, device="cpu") -> CartGrid:
                     int(g.nzg), device=device)
 
 
-def scene_from_numpy(s, device="cpu") -> Scene:
+def _spec_from_numpy(sp, device, disp_funcs) -> PrimSpec:
+    """This package's spec tree for a reference ``PrimSpec`` tree."""
+    twin = None
+    if sp.disp_func is not None:
+        twin = (disp_funcs or {}).get(sp.disp_func)
+        if twin is None:
+            raise NotImplementedError(
+                "a displacement modifier's JAX callable cannot run in "
+                "PyTorch: pass its PyTorch twin in disp_funcs")
+    params = {k: _vector_param(sp.kind, k, _t(v, device).to(torch.float32),
+                               np.ndim(v))
+              for k, v in sp.params.items()}
+    return PrimSpec(sp.kind, params,
+                    children=[_spec_from_numpy(c, device, disp_funcs)
+                              for c in sp.children],
+                    layer=sp.layer, op=sp.op, disp_func=twin)
+
+
+def _vector_param(kind, key, t, own_ndim):
+    """Broadcast a scalar 3-vector parameter (``elongate`` size,
+    ``repeat`` c / la / lb) to a trailing axis of 3, as this package's
+    constructors store it."""
+    if key in VECTOR_PARAMS.get(kind, ()) and own_ndim == 0:
+        return t[..., None].expand(t.shape + (3,)).contiguous()
+    return t
+
+
+def _group_params_from_numpy(spec, sp_ref, gp, device):
+    out = {}
+    for k, v in gp.items():
+        if k.startswith("child") and k[5:].isdigit():
+            i = int(k[5:])
+            out[k] = _group_params_from_numpy(spec.children[i],
+                                              sp_ref.children[i], v, device)
+        else:
+            out[k] = _vector_param(spec.kind, k,
+                                   _t(v, device).to(torch.float32),
+                                   np.ndim(sp_ref.params[k]))
+    return out
+
+
+def scene_from_numpy(s, device="cpu", disp_funcs=None) -> Scene:
     """Keeps ``specs`` order, ``group_sizes``, ``perm`` and ``layer_ids``
     as they are, so prim-index conventions (concatenated-group order for
-    ``ray_bound_idx`` and ``surface_normal``) agree."""
-    specs = tuple(
-        PrimSpec(sp.kind, {k: _t(v, device) for k, v in sp.params.items()},
-                 layer=sp.layer)
-        for sp in s.specs)
-    group_params = [{k: _t(v, device).to(torch.float32)
-                     for k, v in gp.items()} for gp in s.group_params]
+    ``ray_bound_idx`` and ``surface_normal``) agree.  Nested specs
+    (modifiers, CSG models) carry over with their ``child{i}`` parameter
+    trees; a displacement modifier needs ``disp_funcs``, a map from the
+    reference's JAX callable to its PyTorch twin."""
+    specs = tuple(_spec_from_numpy(sp, device, disp_funcs)
+                  for sp in s.specs)
+    group_params = [_group_params_from_numpy(sp, ref, gp, device)
+                    for sp, ref, gp in zip(specs, s.specs, s.group_params)]
     tb = s.tables
     if getattr(tb, "wavelengths", None) is not None:
         raise NotImplementedError(

@@ -2,8 +2,8 @@
 ``rsmcrt_tpu/kernels.py``, the forward ``default`` kernel; reference:
 src/kernelsMod.f90 default_MCRT :14, setup :2225, finalise :2321).
 
-The test kernel, the live tev viewer and geometry rendering are still to
-port (ROADMAP queue 1, items 10 and 14) and raise ``NotImplementedError``.
+The test kernel and the live tev viewer are still to port (ROADMAP queue
+1, items 10 and 14) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from . import default_device
 from .config import ParsedConfig, parse_params
 from .io.writer import (read_checkpoint, write_checkpoint, write_data,
                         write_detected_photons)
+from .render import render_geometry
 from .scenes import setup_simulation
 from .sdfs.scene import Scene, build_scene
 from .tally import as_volume, normalise_fluence
@@ -135,7 +136,7 @@ def run_MCRT(parsed: ParsedConfig, scene: Scene, nphotons=None,
         roulette_chance=st.roulette_chance,
         **fast_path_defaults(fluence=record_fluence, device=device),
     )
-    cfg.check_ported()
+    cfg.check_ported(scene)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed if seed is not None else st.iseed))
     grid = st.grid
@@ -218,13 +219,19 @@ def display_settings(parsed: ParsedConfig, input_file,
     row(f"Config file: {Path(input_file).name}")
     row(f"Using: {kernel_type} kernel")
     row(f"Light source: {st.source}")
-    pos = parsed.source.params.get("position")
+    sp = parsed.source.params
+    pos = sp.get("position")
     if st.source == "point" and pos is not None:
         row("Light Source Position: [%.4g, %.4g, %.4g]"
             % tuple(float(x) for x in pos.cpu().numpy()[:3]))
+    elif sp.get("direction") is not None:
+        row("Light direction: [%.4g, %.4g, %.4g]"
+            % tuple(float(x) for x in sp["direction"].cpu().numpy()[:3]))
     row(f"Geometry: {st.experiment}")
     row(f"Seed: {st.iseed}")
     row(f"Photons: {st.nphotons}")
+    if st.render_geom:
+        row("Render geometry to file enabled!")
     if st.overwrite:
         row("Overwrite Enabled!")
     if st.absorb:
@@ -235,14 +242,13 @@ def display_settings(parsed: ParsedConfig, input_file,
 
 def default_MCRT(input_file: str | Path, data_dir="data", nphotons=None,
                  n_lanes=None, survival_bias=False, verbose=True,
-                 res_dir=None, device=None) -> SimResult:
+                 res_dir=None, device=None,
+                 max_steps=2_000_000) -> SimResult:
     """The standard forward kernel (reference: kernelsMod.f90:14-82),
-    including checkpoint resume (:52-75)."""
+    including checkpoint resume (:52-75).  ``max_steps`` bounds the
+    megasteps as in :func:`run_MCRT`."""
     parsed, scene = setup(input_file, res_dir=res_dir, device=device)
     st = parsed.settings
-    if st.render_geom:
-        raise NotImplementedError(
-            "geometry rendering is not ported (ROADMAP queue 1, item 14)")
     if verbose:
         print(display_settings(parsed, input_file))
 
@@ -259,7 +265,7 @@ def default_MCRT(input_file: str | Path, data_dir="data", nphotons=None,
         st.nphotons = st.nphotons - nrun
 
     result = run_MCRT(parsed, scene, nphotons=nphotons, n_lanes=n_lanes,
-                      survival_bias=survival_bias,
+                      survival_bias=survival_bias, max_steps=max_steps,
                       input_file=input_file if st.ckptfreq > 0 else None,
                       progress_bar=verbose)
     if resume_jmean is not None:
@@ -269,5 +275,10 @@ def default_MCRT(input_file: str | Path, data_dir="data", nphotons=None,
         result = dataclasses.replace(
             result, tallies=dataclasses.replace(result.tallies,
                                                 jmean=merged))
+    if st.render_geom:
+        img = render_geometry(
+            scene, [float(st.grid.xmax), float(st.grid.ymax),
+                    float(st.grid.zmax)], st.render_size)
+        write_data(img, Path(data_dir) / st.rendergeomfile, overwrite=True)
     finalise(result, data_dir=data_dir, verbose=verbose)
     return result

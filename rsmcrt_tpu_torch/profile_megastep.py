@@ -7,10 +7,12 @@
 Builds the config's forward run as ``kernels.run_MCRT`` does (detector
 bank, fast-path defaults), takes ``--warm`` megasteps so the lanes are in
 flight, times ``--steps`` megasteps on the host clock around synchronised
-work, then runs ``--steps`` more under ``torch.profiler`` and prints, per
-megastep: the wall time, the device kernels launched, their device time,
-the device busy share (device time over the unprofiled wall) and the
-kernels that take most of the device time.  Needs a CUDA card.
+work, then runs ``--profiled`` more (default ``--steps``) under
+``torch.profiler`` and prints, per megastep: the wall time, the peak
+device memory, the device kernels launched, their device time, the device
+busy share (device time over the unprofiled wall) and the kernels that
+take most of the device time.  The wall line is printed before the
+profiled megasteps start.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ def main(argv=None) -> int:
                     help="fluence estimator off (detector workloads)")
     ap.add_argument("--warm", type=int, default=4)
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--profiled", type=int, default=None,
+                    help="megasteps under the profiler (default --steps)")
     ap.add_argument("--top", type=int, default=8)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -65,31 +69,35 @@ def main(argv=None) -> int:
         torch.cuda.synchronize(dev)
         return carry
 
-    carry = steps(args.warm, carry)
-    t0 = time.perf_counter()
-    carry = steps(args.steps, carry)
-    wall = (time.perf_counter() - t0) / args.steps
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        carry = steps(args.steps, carry)
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    n_prof = args.steps if args.profiled is None else args.profiled
     print(f"[profile] {args.config}: lanes {cfg.n_lanes}, dda_substeps "
           f"{cfg.dda_substeps}, chain_respawns {cfg.chain_respawns}, "
           f"fluence {fluence}, detectors "
           f"{0 if parsed.detectors is None else parsed.detectors.n_detectors}"
-          f" [{card}]")
+          f" [{card}]", flush=True)
+    carry = steps(args.warm, carry)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    carry = steps(args.steps, carry)
+    wall = (time.perf_counter() - t0) / args.steps
     print(f"[profile] wall per megastep (unprofiled) {wall * 1e3:.1f} ms; "
           f"{int(carry.launched)} photons launched after "
-          f"{args.warm + 2 * args.steps} megasteps")
+          f"{args.warm + args.steps} megasteps; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB",
+          flush=True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        carry = steps(n_prof, carry)
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kern:
         print("[profile] the profiler saw no device kernels: device time "
               "not measured")
         return 0
     dev_us = sum(e.time_range.elapsed_us() for e in kern)
-    per_step = dev_us / args.steps
-    n_k = len(kern) / args.steps
+    per_step = dev_us / n_prof
+    n_k = len(kern) / n_prof
     print(f"[profile] device kernels per megastep {n_k:.0f} "
           f"({n_k / cfg.dda_substeps:.0f} per chain round); device time "
           f"per megastep {per_step / 1e3:.2f} ms; device busy "
@@ -100,15 +108,15 @@ def main(argv=None) -> int:
         by_name[e.name] += e.time_range.elapsed_us()
         count[e.name] += 1
     for name, us in by_name.most_common(args.top):
-        print(f"[profile]   {us / dev_us:6.1%}  {us / args.steps / 1e3:8.3f} "
-              f"ms/megastep  {count[name] / args.steps:7.0f} launches  "
+        print(f"[profile]   {us / dev_us:6.1%}  {us / n_prof / 1e3:8.3f} "
+              f"ms/megastep  {count[name] / n_prof:7.0f} launches  "
               f"{name[:90]}")
     # the port's hand-written kernels (csrc/*.cu) are all deposit kernels
     deposit = [n for n in by_name if "deposit" in n]
     dep_us = sum(by_name[n] for n in deposit)
-    print(f"[profile] deposit kernels: {dep_us / args.steps / 1e3:.4f} "
+    print(f"[profile] deposit kernels: {dep_us / n_prof / 1e3:.4f} "
           f"ms/megastep, {dep_us / dev_us:.3%} of device time, "
-          f"{sum(count[n] for n in deposit) / args.steps:.0f} launches per "
+          f"{sum(count[n] for n in deposit) / n_prof:.0f} launches per "
           f"megastep")
     return 0
 

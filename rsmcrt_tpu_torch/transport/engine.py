@@ -24,9 +24,10 @@ kernel on the card), once per tally per megastep on the ``[B, K]`` lists.
 Detector bins change once per megastep in the analysis phase
 (:func:`record_hits`) and once after the chain (:func:`flush_bins`).
 
-Ported: analog absorption, fluence on or off, emission, all-analytic
-scenes, in-chain respawn, detector banks, bounce roulette,
-scatter-order moments and ``max_scatter_order``.  Options of
+Ported: analog absorption, fluence on or off, emission, every scene
+(analytic prims by closed-form raycasts, the rest by the bounded march of
+:func:`_segment_probe`), in-chain respawn, detector banks, bounce
+roulette, scatter-order moments and ``max_scatter_order``.  Options of
 :class:`TransportConfig` that select anything else raise
 ``NotImplementedError`` naming their ROADMAP item.
 
@@ -104,8 +105,11 @@ class TransportConfig:
     inverse_prim: int = 0
     chain_respawns: int = 1
 
-    def check_ported(self):
-        """Raise for options that select a path this package lacks."""
+    def check_ported(self, scene=None):
+        """Raise for options that select a path this package lacks.  With
+        a ``scene``, also for the reference's fallback to the plain walk:
+        a scene with non-analytic prims and no in-chain march budget
+        (reference engine.py:1353-1355)."""
         todo = [
             (self.survival_bias, "survival_bias",
              "item 10: transport options"),
@@ -127,6 +131,12 @@ class TransportConfig:
                     f"(ROADMAP queue 1, {item})")
         if self.chain_respawns < 1:
             raise ValueError("chain_respawns must be >= 1")
+        if (scene is not None and self.chain_march_iters <= 0
+                and not all(raycast.analytic_column_mask(scene))):
+            raise NotImplementedError(
+                "chain_march_iters=0 on a scene with non-analytic prims "
+                "selects the plain walk, which is not ported (ROADMAP "
+                "queue 1, item 10: plain walk)")
 
 
 @dataclass
@@ -274,17 +284,80 @@ def _wall_streams(pos, direction, cellf, grid):
     return t0, dt
 
 
-def _segment_probe(scene, pos, dirn, tau_dist, avail_cap, land_eps):
-    """Bound of the next straight segment from ``pos`` along ``dirn`` for
-    an all-analytic scene: ``(rem, interact, srf, hidx)``."""
-    t_ana, hidx = raycast.ray_bound_idx(scene, pos, dirn)
-    fin = torch.isfinite(t_ana)
-    avail = torch.where(fin, t_ana - land_eps, torch.inf)
-    rem = torch.clamp(torch.minimum(tau_dist, avail), max=avail_cap)
-    rem = torch.clamp(rem, min=0.0)
-    interact = (tau_dist <= avail) & torch.isfinite(tau_dist)
-    srf = ~interact & (avail <= avail_cap) & fin
-    return rem, interact, srf, hidx
+def _segment_probe(scene, pos, dirn, tau_dist, avail_cap, land_eps, eps,
+                   ana_mask, march_iters):
+    """Bound of the next straight flight segment from ``pos`` along
+    ``dirn``: the analytic raycast over the closed-form prims merged with
+    a capped sphere-trace march over the rest (the reference's inner loop,
+    inttau2.f90:155-192, vectorised and budgeted).
+
+    Returns ``(rem, interact, srf, cont, hidx)``: the segment length
+    (>= 0, capped at ``avail_cap``); whether it ends at the optical-depth
+    distance ``tau_dist``; whether it ends ~eps before a surface whose
+    concat-order prim index is ``hidx`` (analytic hit or marched landing);
+    whether the march budget ran out mid-flight (a continuation: the
+    caller re-anchors and probes again, no physics event).  All-analytic
+    scenes take the closed-form path."""
+    B = pos.shape[0]
+    dev = pos.device
+    zerosb = torch.zeros((B,), dtype=torch.bool, device=dev)
+    if all(ana_mask):
+        t_ana, hidx = raycast.ray_bound_idx(scene, pos, dirn)
+        fin = torch.isfinite(t_ana)
+        avail = torch.where(fin, t_ana - land_eps, torch.inf)
+        rem = torch.clamp(torch.minimum(tau_dist, avail), max=avail_cap)
+        rem = torch.clamp(rem, min=0.0)
+        interact = (tau_dist <= avail) & torch.isfinite(tau_dist)
+        srf = ~interact & (avail <= avail_cap) & fin
+        return rem, interact, srf, zerosb, hidx
+
+    if any(ana_mask):
+        t_ana, hidx_ana = raycast.ray_bound_idx(scene, pos, dirn)
+        avail_ana = torch.where(torch.isfinite(t_ana), t_ana - land_eps,
+                                torch.inf)
+    else:
+        avail_ana = torch.full((B,), torch.inf, dtype=pos.dtype, device=dev)
+        hidx_ana = torch.zeros((B,), dtype=torch.int32, device=dev)
+    # non-analytic columns in user order (eval_scene's column order) and
+    # their concat-order indices (what surface_normal consumes)
+    na_user = [i for i, a in enumerate(ana_mask) if not a]
+    na_cols = torch.as_tensor(na_user, dtype=torch.long, device=dev)
+    na_concat = torch.as_tensor([scene.perm[i] for i in na_user],
+                                dtype=torch.int32, device=dev)
+    bound = torch.clamp(avail_ana, max=avail_cap)
+
+    s = torch.zeros((B,), dtype=pos.dtype, device=dev)
+    hit_tau = zerosb
+    moving = ~zerosb
+    d_cur = torch.zeros_like(s)
+    na_min = torch.full_like(s, torch.inf)
+    na_arg = torch.zeros((B,), dtype=torch.long, device=dev)
+    # each iteration evaluates THEN advances, so every advance is
+    # certified by an evaluation at its start point (an uncertified extra
+    # step overshoots surfaces); a lane still moving after the budget is a
+    # continuation
+    for _ in range(max(march_iters, 1)):
+        ds = eval_scene(scene, pos + s[:, None] * dirn)
+        dmin, darg = torch.min(torch.abs(ds.index_select(-1, na_cols)),
+                               dim=-1)
+        na_min = torch.where(moving, dmin, na_min)
+        na_arg = torch.where(moving, darg, na_arg)
+        d_step = torch.where(moving, torch.minimum(dmin, bound - s), d_cur)
+        d_cur = d_step
+        ht = moving & (s + d_step >= tau_dist)
+        s = torch.where(ht, tau_dist, torch.where(moving, s + d_step, s))
+        hit_tau = hit_tau | ht
+        moving = moving & ~ht & (d_step >= eps)
+    cont = moving
+    # stopped: landed near a non-analytic surface, reached the analytic
+    # bound, or reached the cap
+    stopped = ~hit_tau & ~cont
+    land_na = stopped & (na_min < 2.0 * eps)
+    srf_ana = (stopped & ~land_na & torch.isfinite(avail_ana)
+               & (avail_ana - s <= 2.0 * eps))
+    hidx = torch.where(land_na, na_concat[na_arg], hidx_ana)
+    rem = torch.clamp(torch.clamp(s, max=avail_cap), min=0.0)
+    return rem, hit_tau, land_na | srf_ana, cont, hidx
 
 
 def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
@@ -318,6 +391,7 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
     counts = grid.n_counts
     eps, _, delta_cross = _scalars(cfg)
     fluence = cfg.record_fluence
+    ana_mask = raycast.analytic_column_mask(scene)
 
     walking = alive & (seg_rem > 0.0)
     p0 = pos
@@ -491,9 +565,9 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
         tau_dist2 = torch.where(
             kappa2 > 0.0, tau_ev / torch.clamp(kappa2, min=1e-12),
             torch.inf)
-        rem2, int2, srf2, hidx = _segment_probe(
-            scene, np_pos, np_dir, tau_dist2, seg_cap, land_eps)
-        cont2 = torch.zeros_like(int2)
+        rem2, int2, srf2, cont2, hidx = _segment_probe(
+            scene, np_pos, np_dir, tau_dist2, seg_cap, land_eps, eps,
+            ana_mask, cfg.chain_march_iters)
         tau2 = torch.clamp(tau_ev - rem2 * kappa2, min=0.0)
         steps2 = steps_l + do_sc.to(torch.int32)
 
@@ -594,7 +668,7 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
     updated in place; the returned carry holds the new lane state.
     ``draws`` injects the megastep's uniforms; otherwise they are drawn
     from ``generator``."""
-    cfg.check_ported()
+    cfg.check_ported(scene)
     if nphotons is None:
         nphotons = cfg.nphotons
     st = carry.state
@@ -721,14 +795,28 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
         weight = torch.where(survive_rr, weight / chance, weight)
         overbounced = overbounced | (trapped & ~survive_rr)
 
-    # --- segment selection: min(optical-depth distance, next analytic
-    # surface along the ray, cap) ------------------------------------
-    t_ana, hit_prim = raycast.ray_bound_idx(scene, pos, direction)
-    fin = torch.isfinite(t_ana)
-    avail = torch.where(fin, t_ana - land_eps, torch.inf)
-    interior_len = torch.clamp(torch.minimum(tau_dist, avail), max=seg_cap)
-    interior_interact = (tau_dist <= avail) & torch.isfinite(tau_dist)
-    interior_srf = ~interior_interact & (avail <= seg_cap) & fin
+    # --- segment selection: min(optical-depth distance, next surface
+    # along the ray, cap).  The surface distance comes from the analytic
+    # raycast where the prims have closed forms and from the bounded march
+    # for the rest, classified exactly like the in-chain probe (surface /
+    # continuation), so spawn segments enter the chain with usable flags.
+    ana_mask = raycast.analytic_column_mask(scene)
+    if all(ana_mask):
+        # the reference's closed-form branch (engine.py:1380-1390), which
+        # unlike the probe does not clamp the length at 0
+        t_ana, hit_prim = raycast.ray_bound_idx(scene, pos, direction)
+        fin = torch.isfinite(t_ana)
+        avail = torch.where(fin, t_ana - land_eps, torch.inf)
+        interior_len = torch.clamp(torch.minimum(tau_dist, avail),
+                                   max=seg_cap)
+        interior_interact = (tau_dist <= avail) & torch.isfinite(tau_dist)
+        interior_srf = ~interior_interact & (avail <= seg_cap) & fin
+        cont_new = torch.zeros_like(interior)
+    else:
+        interior_len, interior_interact, interior_srf, cont_p, hit_prim = \
+            _segment_probe(scene, pos, direction, tau_dist, seg_cap,
+                           land_eps, eps, ana_mask, cfg.march_iters)
+        cont_new = interior & cont_p
     same_len = torch.minimum(smallstep, tau_dist)
     seg_new = torch.where(
         interior, interior_len,
@@ -750,7 +838,7 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
     seg_rem = torch.where(need_seg, seg_new, seg_rem)
     seg_interact = torch.where(need_seg, interact_new, seg_interact)
     seg_srf = torch.where(need_seg, srf_new, seg_srf)
-    seg_cont = seg_cont & ~need_seg
+    seg_cont = torch.where(need_seg, cont_new, seg_cont)
     seg_prim = torch.where(need_seg, hit_prim, seg_prim)
 
     alive = alive & ~(escaped | outside_after | overbounced)
@@ -934,7 +1022,7 @@ def warmup(scene: Scene, source: Source, grid: CartGrid,
     every wavefront width of the shrink ladder, so a timed run pays no
     build and no first-use allocation.  Leaves no tally behind and the
     caller's bank as it was."""
-    cfg.check_ported()
+    cfg.check_ported(scene)
     if scene.device.type == "cuda":
         from .. import _build
 
@@ -962,7 +1050,7 @@ def simulate(scene: Scene, source: Source, grid: CartGrid,
     Once the photon budget is spent and at most 1/8 of the lanes live,
     the survivors are compacted into a wavefront 1/8 as wide
     (``tail_shrink``)."""
-    cfg.check_ported()
+    cfg.check_ported(scene)
     n_target = int(cfg.nphotons if nphotons is None else nphotons)
     cur_cfg = cfg
     carry = init_carry(grid, cfg, bank=bank)

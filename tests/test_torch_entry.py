@@ -29,7 +29,12 @@ SETTINGS = ("nphotons", "iseed", "experiment", "outfile", "outfile_absorb",
             "units", "render_geom", "tev", "phasor")
 
 
-@pytest.mark.parametrize("name", ["sphere.toml", "scat_test.toml"])
+PARSED = ["sphere.toml", "scat_test.toml", "omg.toml", "egg_test.toml",
+          "lens.toml", "exp.toml", "aptran.toml", "scat_test2.toml",
+          "validation2.toml", "validation3.toml", "thinBarrier.toml"]
+
+
+@pytest.mark.parametrize("name", PARSED)
 def test_parse_matches_reference(name):
     j = jparse(ROOT / "res" / name)
     t = tparse(ROOT / "res" / name)
@@ -42,10 +47,14 @@ def test_parse_matches_reference(name):
     for k, v in j.geometry.items():
         if k in t.geometry:
             np.testing.assert_allclose(t.geometry[k], v)
-    np.testing.assert_array_equal(t.source.params["position"].numpy(),
-                                  np.asarray(j.source.params["position"]))
+    assert t.source.kind == j.source.kind
+    assert t.source.subtype == j.source.subtype
+    assert sorted(t.source.params) == sorted(j.source.params)
+    for k, v in j.source.params.items():
+        np.testing.assert_array_equal(t.source.params[k].numpy(),
+                                      np.asarray(v), err_msg=k)
     assert float(t.spectrum.value) == float(j.spectrum.value)
-    assert t.detectors is None and j.detectors is None
+    assert (t.detectors is None) == (j.detectors is None)
 
 
 @pytest.mark.parametrize("name", ["sphere.toml", "scat_test.toml"])
@@ -87,10 +96,22 @@ iseed = 3
 
 @pytest.mark.parametrize("fields,err", [
     (dict(geom="sphere", num=2), ConfigError),
-    (dict(geom="egg", num=3), NotImplementedError),
+    (dict(src="dslit"), NotImplementedError),
     (dict(extra_source='spectrum_type = "1D"'), NotImplementedError),
     (dict(extra_source='spectrum_type = "bogus"'), ConfigError),
-    (dict(src="uniform"), NotImplementedError),
+    (dict(src="slm"), NotImplementedError),
+    # the reference's error paths for the ported sources and scenes
+    # (tests/test_parse.py, rsmcrt_tpu/config.py:221-340)
+    (dict(geom="egg", num=2), ConfigError),
+    (dict(src="uniform", extra_source='point1 = [0.0, 0.0, 0.0]\n'
+          'point2 = [1.0, 0.0, 0.0]'), ConfigError),
+    (dict(src="focus"), ConfigError),
+    (dict(src="annulus", extra_source="rotation = [0.0, 0.0, 0.0]"),
+     ConfigError),
+    (dict(src="circular"), ConfigError),
+    (dict(src="uniform", extra_source='direction = "w"'), ConfigError),
+    (dict(src="focus", extra_source='rotation = [0.0, 0.0, 1.0]\n'
+          'focus_type = "hexagon"'), ValueError),
 ])
 def test_parse_errors(tmp_path, fields, err):
     body = dict(geom="scat_test", num=1, extra="", extra_source="",

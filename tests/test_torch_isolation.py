@@ -18,20 +18,48 @@ def _env(**extra):
 
 
 def test_port_never_imports_jax():
-    code = ("import sys, rsmcrt_tpu_torch, rsmcrt_tpu_torch.kernels, "
-            "rsmcrt_tpu_torch.cli, rsmcrt_tpu_torch.interop, "
-            "rsmcrt_tpu_torch.detectors.detectors, "
-            "rsmcrt_tpu_torch.transport.deposit, "
-            "rsmcrt_tpu_torch.scenes, rsmcrt_tpu_torch.profile_megastep; "
+    """Walks the package and imports every module of it."""
+    code = ("import sys, importlib, pkgutil, rsmcrt_tpu_torch as p\n"
+            "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+            "'rsmcrt_tpu_torch.')]\n"
+            "for m in mods: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'rsmcrt_tpu' "
-            "or m.startswith('rsmcrt_tpu.')]; "
-            "assert not bad, bad; print('clean')")
+            "or m.startswith('rsmcrt_tpu.')]\n"
+            "assert not bad, bad\n"
+            "print('clean', len(mods))")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env=_env(), capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr
     assert "clean" in res.stdout
+    names = {p.relative_to(ROOT / "rsmcrt_tpu_torch")
+             for p in (ROOT / "rsmcrt_tpu_torch").rglob("*.py")}
+    # every source file of the package was imported (not only __init__s)
+    assert int(res.stdout.split()[-1]) == len(names) - 1, names
+
+
+def test_non_analytic_scene_without_march_budget_raises():
+    """The reference falls back to the plain walk for a scene with
+    non-analytic prims and chain_march_iters = 0; the port has no plain
+    walk yet and says so instead of running another program."""
+    import pytest
+
+    from rsmcrt_tpu_torch.optics.properties import mono
+    from rsmcrt_tpu_torch.sdfs import scene as S
+    from rsmcrt_tpu_torch.transport.engine import TransportConfig
+
+    opt = mono(1.0, 0.1, 0.0, 1.4)
+    marched = S.build_scene([S.twist(S.torus(0.5, 0.2, opt, 1), 0.4),
+                             S.box([2.0, 2.0, 2.0], opt, 2)])
+    analytic = S.build_scene([S.torus(0.5, 0.2, opt, 1),
+                              S.box([2.0, 2.0, 2.0], opt, 2)])
+    cfg = TransportConfig(nphotons=100, chain_scatter=True,
+                          chain_march_iters=0)
+    with pytest.raises(NotImplementedError, match="plain walk"):
+        cfg.check_ported(marched)
+    cfg.check_ported(analytic)
+    TransportConfig(nphotons=100, chain_scatter=True).check_ported(marched)
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -30,6 +30,7 @@ import jax.numpy as jnp
 
 from rsmcrt_tpu.detectors.detectors import CircleDetectors, DetectorBank
 from rsmcrt_tpu.grid import cart_grid
+from rsmcrt_tpu.optics.properties import mono
 from rsmcrt_tpu.scenes import setup_sphere
 from rsmcrt_tpu.sdfs import scene as S
 from rsmcrt_tpu.sources.sources import build_source, n_source_uniforms
@@ -185,3 +186,131 @@ def test_unported_options_raise():
     ref = {f.name: f.default for f in dataclasses.fields(je.TransportConfig)}
     port = {f.name: f.default for f in dataclasses.fields(te.TransportConfig)}
     assert port == ref
+
+
+def _smooth_union_scene():
+    """tests/test_chain.py's smooth-union model (the omg scene's
+    structure): a cylinder and a torus smooth-unioned in a vacuum box."""
+    opt = mono(10.0, 0.2, 0.0, 1.5)
+    parts = [S.cylinder([-0.25, 0.0, -0.25], [0.25, 0.0, 0.25], 0.1, opt, 1),
+             S.torus(0.3, 0.08, opt, 1)]
+    return S.build_scene([S.model(parts, "smooth_union", 0.09),
+                          S.box([2.0, 2.0, 2.0], mono(0.0, 0.0, 0.0, 1.0),
+                                2)])
+
+
+def test_one_marched_megastep_matches_reference():
+    """One megastep on a non-analytic scene: every probe of the analysis
+    phase and of the chain rounds marches (_segment_probe), continuation
+    events re-probe, and surface events take the autograd normal of the
+    CSG model.  Same gates as the analytic megastep above."""
+    scene = _smooth_union_scene()
+    grid = cart_grid(16, 16, 16, 1.0, 1.0, 1.0)
+    src = build_source("point", position=[0.0, 0.0, 0.0])
+    cfg = je.TransportConfig(nphotons=2000, n_lanes=B, chain_scatter=True,
+                             dda_substeps=K, record_emission=True)
+    key = jax.random.key(11)
+    step = jax.jit(lambda c: je.transport_step(c, scene, src, grid, key,
+                                               cfg))
+    carry = je.init_carry(grid, cfg)
+    for _ in range(3):
+        carry = step(carry)
+
+    to_np = lambda x: jax.tree_util.tree_map(np.asarray, x)  # noqa: E731
+    tc = interop.carry_from_numpy(to_np(carry))
+    tcfg = te.TransportConfig(**dataclasses.asdict(cfg))
+    draws = _jax_draws(key, carry.step, cfg, src)
+    want = to_np(step(carry))
+    got = interop.carry_to_numpy(te.transport_step(
+        tc, interop.scene_from_numpy(to_np(scene)),
+        interop.source_from_numpy(to_np(src)),
+        interop.grid_from_numpy(to_np(grid)), None, tcfg, draws=draws))
+    gs, ws = got["state"], want.state
+    assert 0.2 < ws.alive.mean()
+    assert ws.seg_cont.any()  # the march budget ran out somewhere
+    agree = np.ones(B, bool)
+    for f in ("alive", "layer", "steps", "bounces", "seg_prim",
+              "seg_interact", "seg_srf", "seg_cont"):
+        same = gs[f] == getattr(ws, f)
+        assert same.mean() >= 0.99, (f, same.mean())
+        agree &= same
+    for f in ("pos", "dir", "weight", "phase"):
+        np.testing.assert_allclose(gs[f][agree], getattr(ws, f)[agree],
+                                   rtol=1e-4, atol=1e-4, err_msg=f)
+    # a continuation segment's length is a sum of sphere-trace steps; a
+    # step away from a surface (x' = x + d(x), d' up to 1) can double a
+    # last-bit position difference, so those lanes get rtol 2e-3
+    cont = agree & ws.seg_cont
+    np.testing.assert_allclose(gs["seg_rem"][agree & ~cont],
+                               ws.seg_rem[agree & ~cont], rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(gs["seg_rem"][cont], ws.seg_rem[cont],
+                               rtol=2e-3, atol=1e-4)
+    # tau loses kappa (10.2) times the segment length's float difference
+    # (up to ~3e-5 after a march)
+    np.testing.assert_allclose(gs["tau"][agree], ws.tau[agree], rtol=1e-4,
+                               atol=1e-3)
+    for f in ("jmean", "absorb", "emission"):
+        a, b = float(got["tallies"][f].sum()), float(
+            getattr(want.tallies, f).sum())
+        assert abs(a - b) <= 1e-4 * abs(b), (f, a, b)
+    assert got["launched"] == int(want.launched)
+    assert float(got["tallies"]["nscatt"]) == float(want.tallies.nscatt)
+    # perf[0] counts positive deposits: an interval of float length ~0 may
+    # land on either side of 0 (1e-3 of the count); the rest are equal
+    gp, wp = got["tallies"]["perf"], want.tallies.perf
+    assert abs(int(gp[0]) - int(wp[0])) <= 1e-3 * int(wp[0])
+    np.testing.assert_array_equal(gp[1:], wp[1:])
+
+
+def _probe_scenes():
+    from rsmcrt_tpu.scenes import setup_omg_sdf
+
+    twist = S.build_scene([
+        S.twist(S.torus(0.5, 0.22, mono(8.0, 0.3, 0.5, 1.4), 1), 0.4),
+        S.box([2.0, 2.0, 2.0], mono(0.0, 0.0, 0.0, 1.0), 2)])
+    return {"omg": S.build_scene(setup_omg_sdf()), "twist_torus": twist}
+
+
+@pytest.mark.parametrize("march_iters", [4, 6])
+@pytest.mark.parametrize("name", ["omg", "twist_torus"])
+def test_segment_probe_matches_reference(name, march_iters):
+    """The bounded march of a segment, lane by lane, from 4096 seeded
+    points and directions with optical-depth distances of both kinds
+    (finite, inf in a vacuum).  Flags and prims are equal on >= 99.9% of
+    the lanes (a float32 tie at a threshold is the only allowance).  The
+    length agrees to rtol 1e-4, atol 1e-5 on lanes that stop at a surface
+    or at tau; a continuation's length is a sum of sphere-trace steps,
+    each of which can double a last-bit position difference, so those
+    lanes get rtol 2e-3."""
+    js = _probe_scenes()[name]
+    ts = interop.scene_from_numpy(jax.tree_util.tree_map(np.asarray, js))
+    rng = np.random.default_rng(31)
+    n = 4096
+    pos = rng.uniform(-0.95, 0.95, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    tau = rng.exponential(0.5, n).astype(np.float32)
+    tau[rng.uniform(size=n) < 0.3] = np.inf
+    eps = 1e-5
+    cap = float(8.0 * np.sqrt(3.0) + 1.0)
+    mask = je.raycast.analytic_column_mask(js)
+    assert not all(mask)
+    want = [np.asarray(a) for a in je._segment_probe(
+        js, jnp.asarray(pos), jnp.asarray(d), jnp.asarray(tau), cap,
+        0.5 * eps, eps, mask, march_iters)]
+    got = [a.numpy() for a in te._segment_probe(
+        ts, torch.as_tensor(pos), torch.as_tensor(d), torch.as_tensor(tau),
+        cap, 0.5 * eps, eps, mask, march_iters)]
+    agree = np.ones(n, bool)
+    for i, f in ((1, "interact"), (2, "srf"), (3, "cont"), (4, "hidx")):
+        same = got[i] == want[i]
+        assert same.mean() >= 0.999, (f, same.mean())
+        agree &= same
+    # every outcome occurs
+    assert want[1].any() and want[2].any() and want[3].any()
+    cont = agree & want[3]
+    np.testing.assert_allclose(got[0][agree & ~cont], want[0][agree & ~cont],
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got[0][cont], want[0][cont], rtol=2e-3,
+                               atol=1e-5)
