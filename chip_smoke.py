@@ -14,14 +14,16 @@ Phases (each raises on failure; the exit code is non-zero on any):
    after 8 warm megasteps; each timed with CUDA events beside its plain
    twin and one ``index_add_``, with the rows' live share, rows per cell
    and mean group of equal indices in 32 consecutive rows.
-4. physics gate: res/scat_test.toml at its 100,000 photons on the 200^3
-   grid through ``kernels.run_MCRT``; nscatt/photon must be 57.5 +- 0.5.
+4. physics gate: res/scat_test.toml cut to 20,000 photons on the 200^3
+   grid through ``kernels.run_MCRT``; nscatt/photon must be 57.5 +- 1.0
+   (phase 17 holds the same scene with a 1D spectrum to 57.5 +- 0.5 at
+   100,000 photons).
 5. card against CPU: a reduced res/sphere.toml (32^3 grid, 16,000
    photons) on the card and on the CPU; the kernel path and the plain path
    must tally the same physics (nscatt within 1.0, path length within 2%,
    radial fluence within 10%).
 6. the slice at full width: ``kernels.default_MCRT("res/sphere.toml")``,
-   32768 lanes, 200^3 grid, cut from 1,000,000 photons to 500,000, with
+   32768 lanes, 200^3 grid, cut from 1,000,000 photons to 250,000, with
    every deposit counted.
 7. window kernel against plain: ``deposit_window_packed`` against its
    plain twin on three inputs (the deposit-window tool's workload of
@@ -37,13 +39,13 @@ Phases (each raises on failure; the exit code is non-zero on any):
    the reference's tolerances, the detector dumps written.
 10. the fluenceless bench path: the sphere scene and the bench's circle
     detector, 32768 lanes, K = 64, 3 in-chain respawns, no fluence and no
-    emission, at 2,000,000 photons (the bench runs 32M).
+    emission, at 1,000,000 photons (the bench runs 32M).
 11. detectors, card against CPU: ``res/test_dects.toml`` (circle, annulus,
     camera) cut to 20,000 photons on 64^3 with the fluence estimator on.
 12. omg at full width: ``kernels.default_MCRT("res/omg.toml")`` (a
     smooth-union CSG model of a torus and nine cylinders, a uniform
     source, the 200^3 grid, 32768 lanes), every probe marched, cut from
-    500,000 photons to 131,072 and at most 30 megasteps (a photon
+    500,000 photons to 131,072 and at most 20 megasteps (a photon
     launched within eps of a grid face creeps along it at ~3e-5 a
     megastep, as in the reference); launches equal the photons asked
     for, the emission sums to them, the tallies are finite and
@@ -55,9 +57,41 @@ Phases (each raises on failure; the exit code is non-zero on any):
     long as the card's omg run, so it runs in a child process started
     before phase 4, beside the card's gate phases 4, 5 and 11.
 14. the other scenes on the card: res/lens.toml, res/exp.toml and
-    res/aptran.toml cut to 64^3 and 20,000 photons, res/egg_test.toml to
-    32^3, 10,000 photons and at most 8 megasteps (~5 s each); launches
-    equal the photons asked for, the tallies are finite.
+    res/aptran.toml cut to 64^3, 20,000 photons and at most 20 megasteps,
+    res/egg_test.toml to 32^3, 10,000 photons and at most 6 megasteps
+    (~5 s each); launches equal the photons asked for, the tallies are
+    finite.
+15. the signed option of the deposit kernel against its plain twin (after
+    phase 3): the phasor's ``phasor_re`` / ``phasor_im`` rows of one
+    captured megastep of res/dslit.toml and a mixed-sign mix with NaN,
+    inf, zero rows and windows of +x / -x pairs on one cell, each timed
+    beside its plain twin and one ``index_add_``; the unsigned cloud mix
+    timed through both instantiations.
+16. res/dslit.toml at its own size (200,000 photons, 320 x 4 x 8) through
+    ``kernels.default_MCRT``: the phasor takes the plain walk, the phasor
+    volumes are written, the fringe contrast beats 1.5x the incoherent
+    fluence's, every deposit goes through the kernel.
+17. res/test_spectra_1D.toml at its 100,000 photons on 200^3
+    (nscatt/photon 57.5 +- 0.5) and its launched wavelengths against
+    blood.dat's CDF (KS distance under 3/sqrt(n)); test_spectra_2D and
+    _const cut to 20,000 photons (57.5 +- 1.0).
+18. survival bias on res/validation1.toml at its 1,000,000 photons, the
+    fluence estimator off, at the reference's Rd / Td gate.
+19. path history: res/validation1.toml with ``trackHistory = true`` in a
+    copy, plain walk, fluence on, 200,000 photons: tracks kept,
+    photPos.obj written, detector totals within 5 sigma of phase 9's.
+    Each run of phases 16-19 must launch the deposit kernel and make no
+    plain call.
+20. plain walk, card against CPU: the sphere at 32^3 (16,000 photons,
+    phase 5's gates), a spectral sphere (32^3, 32,000 photons, nscatt and
+    path within 4%) and a ``qmc_source`` slab (res/validation1.toml,
+    100,000 photons on 16,384 lanes, the reference's Rd / Td gate on
+    both); the CPU halves run in a second child process started beside
+    phase 13's.
+
+Phases 4, 6, 10, 12 and 14 were cut (from 100,000 photons, 500,000,
+2,000,000, 30 megasteps and 8 / 40 megasteps) to make room for phases
+15-20 within the time limit.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -83,6 +117,9 @@ SCAT = ROOT / "res" / "scat_test.toml"
 SLAB = ROOT / "res" / "validation1.toml"
 DECTS = ROOT / "res" / "test_dects.toml"
 OMG = ROOT / "res" / "omg.toml"
+DSLIT = ROOT / "res" / "dslit.toml"
+SPECTRA = {k: ROOT / "res" / f"test_spectra_{k}.toml"
+           for k in ("1D", "2D", "const")}
 N_LANES, K, GRID = 32768, 64, 200
 #: H100 SXM device memory rate, bytes/s (NVIDIA data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -194,13 +231,16 @@ def _time_ms(fn, reps=20):
 def capture_megastep(toml, dev, warm=8, n_lanes=N_LANES):
     """The rows every ``deposit_add_`` call of one megastep of a forward
     fluence run hands the kernel.  Builds the run as ``kernels.run_MCRT``
-    does, takes ``warm`` megasteps so the lanes are in flight, then runs
-    one more through ``engine.transport_step`` with the engine's
-    ``deposit_add_`` wrapped to clone each call's ``(flat_idx, val)``.
-    Returns ``(calls, before, after)``: ``calls`` maps a name to
-    ``(tally name, idx, val)`` in call order (the launch emission, the
-    in-chain respawn emission, the fluence walk, the absorption);
-    ``before`` / ``after`` are the three tallies around the megastep."""
+    does (the config's phasor and path history included), takes ``warm``
+    megasteps so the lanes are in flight, then runs one more through
+    ``engine.transport_step`` with the engine's ``deposit_add_`` wrapped
+    to clone each call's ``(flat_idx, val)``.  Returns ``(calls, before,
+    after)``: ``calls`` maps a name to ``(tally name, idx, val)`` in call
+    order (the chained walk: the launch emission, the in-chain respawn
+    emission, the fluence walk, the absorption; the plain walk with the
+    phasor: the emission, the fluence walk, the absorption and the
+    phasor's signed ``phasor_re`` and ``phasor_im``); ``before`` /
+    ``after`` are the tallies around the megastep."""
     from rsmcrt_tpu_torch import kernels
     from rsmcrt_tpu_torch.transport import engine
 
@@ -208,7 +248,8 @@ def capture_megastep(toml, dev, warm=8, n_lanes=N_LANES):
     st = parsed.settings
     cfg = engine.TransportConfig(
         nphotons=st.nphotons, n_lanes=n_lanes, record_fluence=True,
-        record_emission=True, roulette_bounces=st.roulette_bounces,
+        record_emission=True, record_phasor=st.phasor,
+        roulette_bounces=st.roulette_bounces,
         roulette_chance=st.roulette_chance,
         **kernels.fast_path_defaults(device=dev))
     gen = torch.Generator(device=dev)
@@ -217,18 +258,21 @@ def capture_megastep(toml, dev, warm=8, n_lanes=N_LANES):
     for _ in range(warm):
         carry = engine.transport_step(carry, scene, parsed.source, st.grid,
                                       gen, cfg)
-    tallies = ("jmean", "absorb", "emission")
-    names = {"emission": ["emission", "emission_respawn"],
-             "jmean": ["jmean"], "absorb": ["absorb"]}
+    tallies = ("jmean", "absorb", "emission") + (
+        ("phasor_re", "phasor_im") if st.phasor else ())
     by_id = {id(getattr(carry.tallies, t)): t for t in tallies}
     before = {t: getattr(carry.tallies, t).clone() for t in tallies}
     calls = {}
     real = engine.deposit_add_
 
-    def recording(tally_flat, flat_idx, val, dot_dtype=torch.float32):
+    def recording(tally_flat, flat_idx, val, dot_dtype=torch.float32,
+                  signed=False):
         t = by_id[id(tally_flat)]
-        calls[names[t].pop(0)] = (t, flat_idx.clone(), val.clone())
-        return real(tally_flat, flat_idx, val, dot_dtype)
+        if signed != t.startswith("phasor"):
+            raise AssertionError(f"{t} deposited with signed={signed}")
+        calls[t + "_respawn" if t in calls else t] = (
+            t, flat_idx.clone(), val.clone())
+        return real(tally_flat, flat_idx, val, dot_dtype, signed)
 
     engine.deposit_add_ = recording
     try:
@@ -505,16 +549,16 @@ def _profile(jmean, g):
                      for lo, hi in zip(b, b[1:])])
 
 
-def phase_physics(dev, card):
+def phase_physics(dev, card, n=20_000):
     from rsmcrt_tpu_torch import kernels
 
     parsed, scene = kernels.setup(SCAT, device=dev)
-    res = kernels.run_MCRT(parsed, scene)
+    res = kernels.run_MCRT(parsed, scene, nphotons=n)
     ns = res.nscatt_per_photon
-    log(f"[physics] scat_test: {res.launched} photons, nscatt/photon "
-        f"{ns:.4f} (want 57.5 +- 0.5), {res.steps} megasteps, "
-        f"{res.elapsed:.2f} s [{card}]")
-    if res.launched != parsed.settings.nphotons or abs(ns - 57.5) >= 0.5:
+    log(f"[physics] scat_test: {res.launched} photons (cut from 100,000), "
+        f"nscatt/photon {ns:.4f} (want 57.5 +- 1.0), {res.steps} megasteps,"
+        f" {res.elapsed:.2f} s [{card}]")
+    if res.launched != n or abs(ns - 57.5) >= 1.0:
         raise AssertionError(f"scat_test nscatt {ns}")
 
 
@@ -552,7 +596,7 @@ def _check_tallies(tl, n_cells, what):
                                  "finite/non-negative")
 
 
-def phase_slice(dev, tmp, card, n=500_000):
+def phase_slice(dev, tmp, card, n=250_000):
     from rsmcrt_tpu_torch import kernels
     from rsmcrt_tpu_torch.transport import deposit as dep
 
@@ -635,7 +679,7 @@ def phase_validation(dev, tmp, card):
     for i in (1, 2):
         if not (tmp / "slab" / "detectors" / f"detector_{i}.dat").exists():
             raise AssertionError(f"detector_{i}.dat not written")
-    return rd, td
+    return rd, td, n
 
 
 def _bench_bank(dev):
@@ -654,7 +698,7 @@ def _bench_bank(dev):
                           order=(("circle", 0),), ids=("d0",), layers=(2,))
 
 
-def phase_fluenceless(dev, card, nphotons=2_000_000):
+def phase_fluenceless(dev, card, nphotons=1_000_000):
     """bench.run_fluenceless on the port: sphere scene, bench circle
     detector, 32768 lanes, K = 64, 3 in-chain respawns, no fluence, no
     emission; cut from the bench's 32M photons to fit the time limit."""
@@ -728,7 +772,7 @@ def phase_detectors_card_vs_cpu(dev, tmp, card):
         raise AssertionError("card and CPU detectors disagree")
 
 
-def phase_omg(dev, tmp, card, n=131_072, max_steps=30):
+def phase_omg(dev, tmp, card, n=131_072, max_steps=20):
     """The marched chained walk at full width: res/omg.toml on the 200^3
     grid through ``kernels.default_MCRT``, cut from 500,000 photons to
     ``n`` and at most ``max_steps`` megasteps."""
@@ -857,16 +901,16 @@ def phase_omg_card_vs_cpu(card, dev, cpu_run):
 
 
 def phase_scenes(dev, tmp, card):
-    """egg_test (cut to 32^3, 10,000 photons and at most 8 megasteps of ~5
-    s: it needs 5), lens, exp and aptran (64^3, 20,000 photons, at most 40
+    """egg_test (cut to 32^3, 10,000 photons and at most 6 megasteps of ~5
+    s: it needs 5), lens, exp and aptran (64^3, 20,000 photons, at most 20
     megasteps) on the card."""
     from rsmcrt_tpu_torch import kernels
     from rsmcrt_tpu_torch.transport import deposit as dep
 
-    for name, g, n, cap in (("egg_test.toml", 32, 10_000, 8),
-                            ("lens.toml", 64, 20_000, 40),
-                            ("exp.toml", 64, 20_000, 40),
-                            ("aptran.toml", 64, 20_000, 40)):
+    for name, g, n, cap in (("egg_test.toml", 32, 10_000, 6),
+                            ("lens.toml", 64, 20_000, 20),
+                            ("exp.toml", 64, 20_000, 20),
+                            ("aptran.toml", 64, 20_000, 20)):
         toml = _reduced(tmp, name, g, n)
         dep.reset_counts()
         res = kernels.run_MCRT(*kernels.setup(toml, device=dev),
@@ -885,6 +929,449 @@ def phase_scenes(dev, tmp, card):
             raise AssertionError(f"{name} did not run the deposit kernel")
 
 
+def _signed_mix(dev, gen):
+    """Rows of both signs for the signed option: the cloud mix's indices
+    (2,097,152 rows into 200^3) with values uniform in (-0.01, 0.01), a
+    tenth of them 0, every 97th NaN or +-inf, and in rows
+    :func:`_cancelling` windows of 32 rows on one cell each whose values
+    come in +x, -x pairs (a group whose sum is 0)."""
+    idx, _ = _mixes(dev, gen)["cloud"]
+    idx = idx.clone()
+    n = idx.numel()
+    val = 0.02 * torch.rand(n, generator=gen, device=dev) - 0.01
+    val[torch.rand(n, generator=gen, device=dev) < 0.1] = 0.0
+    bad = torch.arange(0, n, 97, device=dev)
+    val[bad] = torch.tensor([float("nan"), float("inf"), -float("inf")],
+                            device=dev).repeat(bad.numel() // 3 + 1)[
+        :bad.numel()]
+    lo, m = _cancelling(n)
+    idx[lo:lo + m] = idx[lo:lo + m:32].repeat_interleave(32)
+    x = 0.01 * torch.rand(m // 2, generator=gen, device=dev)
+    val[lo:lo + m] = torch.stack([x, -x], dim=-1).reshape(-1)
+    return idx, val
+
+
+def _cancelling(n):
+    """The rows of :func:`_signed_mix`'s cancelling windows: ``(first,
+    count)``, from row n/8 on, n/4 of them."""
+    return n // 8, n // 4
+
+
+def _signed_library(tally, idx, val):
+    """One ``index_add_`` of the kept signed rows: a yardstick."""
+    idx_l = idx.long()
+    keep = (val != 0.0) & torch.isfinite(val)
+    return lambda: tally.index_add_(0, idx_l, torch.where(keep, val, 0.0))
+
+
+def phase_signed(dev, card):
+    """The signed option of ``deposit_add_`` against its plain twin: on
+    the phasor's ``phasor_re`` / ``phasor_im`` rows of one megastep of
+    res/dslit.toml (captured, 32768 lanes) and on a mixed-sign mix; each
+    timed beside its plain twin and one ``index_add_``, and the unsigned
+    cloud mix timed through the signed instantiation beside the unsigned
+    one (their rows are all >= 0, so both keep the same rows)."""
+    from rsmcrt_tpu_torch.transport import deposit as dep
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5678)
+    n_cells = GRID ** 3
+    bad0 = dep.out_of_range_count(dev)
+    calls, before, after = capture_megastep(DSLIT, dev, warm=4)
+    if list(calls) != ["emission", "jmean", "absorb", "phasor_re",
+                       "phasor_im"]:
+        raise AssertionError(f"dslit captured calls {list(calls)}")
+    dslit_cells = after["jmean"].numel()
+    inputs = {f"dslit_{k}": (calls[k][1], calls[k][2], dslit_cells)
+              for k in ("phasor_re", "phasor_im")}
+    inputs["mixed_sign"] = _signed_mix(dev, gen) + (n_cells,)
+    rows = {}
+    for name, (idx, val, cells) in inputs.items():
+        keep = (val != 0.0) & torch.isfinite(val)
+        got = dep.deposit_add_(torch.zeros(cells, device=dev), idx, val,
+                               signed=True)
+        want = dep.deposit_add_plain(torch.zeros(cells, device=dev), idx,
+                                     val, signed=True)
+        # float atomics in a run-dependent order, and cells whose terms
+        # cancel: rtol 1e-4 of the largest cell of |val| over the kept rows
+        scale = float(dep.deposit_add_plain(
+            torch.zeros(cells, device=dev), idx,
+            torch.where(keep, val.abs(), 0.0)).max())
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"signed {name}: kernel vs plain {err} > "
+                                 f"1e-4 * {scale}")
+        n_neg = int((keep & (val < 0)).sum())
+        tally = torch.zeros(cells, device=dev)
+        t_p1, t_k1, t_k2, t_p2 = (_time_ms(f) for f in (
+            lambda: dep.deposit_add_plain(tally, idx, val, signed=True),
+            lambda: dep.deposit_add_(tally, idx, val, signed=True),
+            lambda: dep.deposit_add_(tally, idx, val, signed=True),
+            lambda: dep.deposit_add_plain(tally, idx, val, signed=True)))
+        t_lib = min(_time_ms(_signed_library(tally, idx, val))
+                    for _ in range(2))
+        touched = int(torch.unique(idx[keep]).numel())
+        bound = _bound_ms(8 * idx.numel() + 8 * touched)
+        rows[name] = dict(err=err, ms=min(t_k1, t_k2),
+                          plain_ms=min(t_p1, t_p2), library_ms=t_lib,
+                          bound_ms=bound)
+        log(f"[signed] {name}: {idx.numel()} rows into {cells} cells, kept "
+            f"{int(keep.sum())} ({n_neg} negative), {touched} cells "
+            f"touched; max_abs_err {err:.3e} (largest |cell| {scale:.4g}); "
+            f"kernel {t_k1:.4f}/{t_k2:.4f} ms, plain {t_p1:.4f}/"
+            f"{t_p2:.4f} ms, one index_add_ {t_lib:.4f} ms, bound "
+            f"{bound:.4f} ms [{card}]")
+    # the cancelling windows: every one of their cells sums to ~0
+    idx, val, _ = inputs["mixed_sign"]
+    lo, m = _cancelling(idx.numel())
+    cells = torch.unique(idx[lo:lo + m])
+    outside = torch.ones_like(val, dtype=torch.bool)
+    outside[lo:lo + m] = False
+    rest = dep.deposit_add_(torch.zeros(n_cells, device=dev), idx,
+                            torch.where(outside, val, 0.0), signed=True)
+    got = dep.deposit_add_(torch.zeros(n_cells, device=dev), idx, val,
+                           signed=True)
+    resid = float((got[cells] - rest[cells]).abs().max())
+    if resid > 1e-6:
+        raise AssertionError(f"cancelling pairs left {resid}")
+    # the unsigned cloud mix through both instantiations
+    cidx, cval = _mixes(dev, gen)["cloud"]
+    tally = torch.zeros(n_cells, device=dev)
+    t_u1, t_s1, t_s2, t_u2 = (_time_ms(f) for f in (
+        lambda: dep.deposit_add_(tally, cidx, cval),
+        lambda: dep.deposit_add_(tally, cidx, cval, signed=True),
+        lambda: dep.deposit_add_(tally, cidx, cval, signed=True),
+        lambda: dep.deposit_add_(tally, cidx, cval)))
+    log(f"[signed] cloud mix (values >= 0): unsigned {t_u1:.4f}/{t_u2:.4f} "
+        f"ms, signed {t_s1:.4f}/{t_s2:.4f} ms; the cancelling windows add "
+        f"at most {resid:.2e} to their cells [{card}]")
+    if dep.out_of_range_count(dev) != bad0:
+        raise AssertionError("signed deposits counted out-of-range rows")
+    return rows
+
+
+def _main_path(what):
+    """Counts of the deposit kernel for a main-path run: reset before,
+    read after (the launches the run made; plain calls must be 0)."""
+    from rsmcrt_tpu_torch.transport import deposit as dep
+
+    launches, plain = dep.deposit_kernel_launches, dep.deposit_plain_calls
+    if launches <= 0 or plain != 0:
+        raise AssertionError(f"{what}: deposit kernel launches {launches}, "
+                             f"plain calls {plain}")
+    return launches
+
+
+def phase_dslit(dev, tmp, card):
+    """res/dslit.toml at its own size through ``kernels.default_MCRT``:
+    the phasor selects the plain walk, the phasor volumes are written, the
+    coherent intensity near the entry plane is modulated more than 1.5x
+    the incoherent fluence (tests/test_phasor.py's gate), and every
+    deposit goes through the kernel."""
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.io.writer import read_nrrd
+    from rsmcrt_tpu_torch.transport import deposit as dep
+    from rsmcrt_tpu_torch.transport.engine import TransportConfig
+
+    parsed, scene = kernels.setup(DSLIT, device=dev)
+    st = parsed.settings
+    if TransportConfig(nphotons=1, record_phasor=st.phasor,
+                       **kernels.fast_path_defaults(device=dev)
+                       ).chains(scene):
+        raise AssertionError("dslit did not select the plain walk")
+    torch.cuda.synchronize()
+    dep.reset_counts()
+    with contextlib.chdir(tmp):
+        res = kernels.default_MCRT(DSLIT, data_dir=tmp / "dslit",
+                                   verbose=False, device=dev)
+    launches = _main_path("dslit")
+    g = st.grid
+    shape = (g.nxg, g.nyg, g.nzg)
+    vols = {}
+    for name in ("phasor", "phasor_re", "phasor_im"):
+        path = tmp / "dslit" / "phasor" / f"{name}.nrrd"
+        if not path.exists():
+            raise AssertionError(f"{path.name} not written")
+        vols[name] = read_nrrd(path)[0]
+    re_, im_ = (res.tallies.phasor_re.double().cpu().numpy().reshape(shape),
+                res.tallies.phasor_im.double().cpu().numpy().reshape(shape))
+    inten = (re_ ** 2 + im_ ** 2)[:, 1:3, :].sum(axis=(1, 2))
+    incoh = res.tallies.jmean.double().cpu().numpy().reshape(shape)[
+        :, 1:3, :].sum(axis=(1, 2))
+    mid = slice(g.nxg // 4, 3 * g.nxg // 4)
+    contrast = inten[mid].std() / max(inten[mid].mean(), 1e-12)
+    base = incoh[mid].std() / max(incoh[mid].mean(), 1e-12)
+    log(f"[dslit] res/dslit.toml: {res.launched} photons, plain walk, "
+        f"{res.steps} megasteps, {res.elapsed:.2f} s, "
+        f"{res.photons_per_second:.1f} photons/s; fringe contrast "
+        f"{contrast:.4f} against the incoherent fluence's {base:.4f} "
+        f"({contrast / max(base, 1e-12):.2f}x); deposit kernel launches "
+        f"{launches}, plain calls {dep.deposit_plain_calls} [{card}]")
+    if res.launched != st.nphotons or not contrast > 1.5 * base:
+        raise AssertionError("dslit: no fringes")
+    if not np.allclose(vols["phasor_re"], re_.astype(np.float32)):
+        raise AssertionError("dslit: phasor_re.nrrd is not the tally")
+    return launches
+
+
+def _ks_distance(samples, x, cdf):
+    """Kolmogorov-Smirnov distance of ``samples`` from the piecewise
+    linear CDF through ``(x, cdf)``."""
+    s = np.sort(samples)
+    f = np.interp(s, x, cdf)
+    n = s.size
+    i = np.arange(1, n + 1)
+    return max(float(np.max(i / n - f)), float(np.max(f - (i - 1) / n)))
+
+
+def phase_spectra(dev, card):
+    """res/test_spectra_1D.toml at its 100,000 photons on 200^3 (scat_test:
+    nscatt/photon 57.5 +- 0.5), its launched wavelengths against
+    blood.dat's CDF (KS distance under 3/sqrt(n)); test_spectra_2D and
+    _const cut to 20,000 photons (57.5 +- 1.0)."""
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.sources.sources import n_source_uniforms, sample
+    from rsmcrt_tpu_torch.transport import deposit as dep
+
+    launches = 0
+    for key, n, tol in (("1D", None, 0.5), ("2D", 20_000, 1.0),
+                        ("const", 20_000, 1.0)):
+        parsed, scene = kernels.setup(SPECTRA[key], device=dev)
+        dep.reset_counts()
+        res = kernels.run_MCRT(parsed, scene, nphotons=n)
+        launches += _main_path(f"test_spectra_{key}")
+        ns = res.nscatt_per_photon
+        log(f"[spectra] res/test_spectra_{key}.toml: {res.launched} photons "
+            f"on {GRID}^3, nscatt/photon {ns:.4f} (want 57.5 +- {tol}), "
+            f"{res.steps} megasteps, {res.elapsed:.2f} s, "
+            f"{res.photons_per_second:.1f} photons/s [{card}]")
+        if abs(ns - 57.5) >= tol:
+            raise AssertionError(f"test_spectra_{key}: nscatt {ns}")
+        if key == "1D":
+            src, grid = parsed.source, parsed.settings.grid
+            m = res.launched
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(parsed.settings.iseed)
+            u = torch.rand((m, n_source_uniforms(src)), generator=gen,
+                           device=dev).clamp_(min=1e-12)
+            wl = sample(src, grid, u)[3].double().cpu().numpy()
+            tab = np.loadtxt(ROOT / "res" / "blood.dat", delimiter=",")
+            seg = 0.5 * (tab[1:, 1] + tab[:-1, 1]) * np.diff(tab[:, 0])
+            cdf = np.concatenate([[0.0], np.cumsum(seg)]) / seg.sum()
+            ks = _ks_distance(wl, tab[:, 0], cdf)
+            log(f"[spectra] {m} launched wavelengths: mean {wl.mean():.3f} "
+                f"nm, KS distance from blood.dat's CDF {ks:.5f} (gate "
+                f"{3.0 / np.sqrt(m):.5f})")
+            if ks >= 3.0 / np.sqrt(m):
+                raise AssertionError(f"wavelengths off blood.dat: KS {ks}")
+    return launches
+
+
+def phase_survival(dev, card, analog):
+    """Survival bias on res/validation1.toml at its 1,000,000 photons, the
+    fluence estimator off: Rd and Td at the reference's gate, and every
+    absorbed-weight deposit through the kernel."""
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.detectors.detectors import totals
+    from rsmcrt_tpu_torch.transport import deposit as dep
+
+    parsed, scene = kernels.setup(SLAB, device=dev)
+    torch.cuda.synchronize()
+    dep.reset_counts()
+    res = kernels.run_MCRT(parsed, scene, record_fluence=False,
+                           survival_bias=True)
+    launches = _main_path("survival bias")
+    n = res.launched
+    rd, td = (float(v) for v in totals(res.bank) / n)
+    log(f"[survival] res/validation1.toml, survival bias: {n} photons, "
+        f"{res.steps} megasteps, {res.elapsed:.2f} s, "
+        f"{res.photons_per_second:.1f} photons/s; Rd {rd:.5f} Td {td:.5f} "
+        f"(analog {analog[0]:.5f} {analog[1]:.5f}; want 0.09739 +- 0.005, "
+        f"0.66096 +- 0.008); absorbed weight/photon "
+        f"{float(res.tallies.absorb.double().sum()) / n:.5f}; deposit "
+        f"kernel launches {launches} [{card}]")
+    if n != parsed.settings.nphotons or abs(rd - 0.09739) >= 0.005 \
+            or abs(td - 0.66096) >= 0.008:
+        raise AssertionError(f"survival bias: Rd {rd} Td {td}")
+    return launches
+
+
+def phase_history(dev, tmp, card, analog, n=200_000):
+    """Path history on the plain walk with the fluence estimator on:
+    res/validation1.toml with ``trackHistory = true`` in a copy, cut to
+    ``n`` photons; tracks kept, photPos.obj written, the detector totals
+    within 5 sigma of the analog slab run's."""
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.detectors.detectors import totals
+    from rsmcrt_tpu_torch.transport import deposit as dep
+    from rsmcrt_tpu_torch.transport.engine import TransportConfig
+
+    toml = tmp / "validation1_history.toml"
+    toml.write_text(SLAB.read_text().replace(
+        "[[detectors]]\n", "[[detectors]]\ntrackHistory = true\n"))
+    parsed, scene = kernels.setup(toml, device=dev)
+    if not parsed.settings.trackHistory or TransportConfig(
+            nphotons=1, history_len=64,
+            **kernels.fast_path_defaults(device=dev)).chains(scene):
+        raise AssertionError("trackHistory did not select the plain walk")
+    torch.cuda.synchronize()
+    dep.reset_counts()
+    res = kernels.run_MCRT(parsed, scene, nphotons=n)
+    launches = _main_path("history")
+    tl = res.tallies
+    kept = int(tl.track_count)
+    trunc, over = (int(v) for v in tl.track_dropped)
+    kernels.finalise(res, data_dir=tmp / "history", verbose=False)
+    obj = tmp / "history" / parsed.settings.historyFilename
+    got = (totals(res.bank) / res.launched).double().cpu().numpy()
+    n_a = analog[2]
+    sig = [abs(g - a) / np.sqrt(a * (1 - a) * (1 / res.launched + 1 / n_a))
+           for g, a in zip(got, analog[:2])]
+    log(f"[history] res/validation1.toml + trackHistory, plain walk, "
+        f"fluence on: {res.launched} photons, {res.steps} megasteps, "
+        f"{res.elapsed:.2f} s, {res.photons_per_second:.1f} photons/s; "
+        f"{kept} tracks kept, {over} overflowed, {trunc} ring-truncated "
+        f"events; {obj.name} {obj.stat().st_size if obj.exists() else 0} "
+        f"bytes; Rd {got[0]:.5f} Td {got[1]:.5f} ({sig[0]:.2f}, "
+        f"{sig[1]:.2f} sigma from the analog run); deposit kernel "
+        f"launches {launches} [{card}]")
+    if res.launched != n or kept <= 0 or not obj.exists() \
+            or max(sig) >= 5.0:
+        raise AssertionError("history run failed")
+    return launches
+
+
+def _spectral_sphere(device):
+    """A sphere whose mus rises from 5 to 10 over 400-700 nm (mua 0.1,
+    g 0.5, n 1.0) in a vacuum box, and a point source with a flat 1D
+    spectrum over the same band."""
+    from rsmcrt_tpu_torch.optics.piecewise import piecewise1d
+    from rsmcrt_tpu_torch.optics.properties import SpectralOptProps, mono
+    from rsmcrt_tpu_torch.sdfs import scene as S
+    from rsmcrt_tpu_torch.sources.sources import build_source
+
+    wl = [400.0, 700.0]
+
+    def tab(lo, hi):
+        return piecewise1d(np.stack([wl, [lo, hi]], axis=1), device=device)
+
+    opt = SpectralOptProps(mus_tab=tab(5.0, 10.0), mua_tab=tab(0.1, 0.1),
+                           hgg_tab=tab(0.5, 0.5), n_tab=tab(1.0, 1.0),
+                           flux=tab(1.0, 1.0))
+    scene = S.build_scene([S.sphere(1.0, opt, 1, device=device),
+                           S.box([2.0, 2.0, 2.0], mono(0.0, 0.0, 0.0, 1.0),
+                                 2, device=device)], device=device)
+    src = build_source("point", spectrum=tab(1.0, 1.0),
+                       position=[0.0, 0.0, 0.0], device=device)
+    return scene, src
+
+
+def _sim(d, scene, src, grid, n, bank=None, seed=3, lanes=4096, **cfg_kw):
+    """``engine.simulate`` on device ``d`` with the fast-path defaults,
+    ``lanes`` lanes and ``cfg_kw``: ``[nscatt/photon, path/photon, wall s,
+    detector totals/photon..., radial fluence profile...]``."""
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.detectors.detectors import totals
+    from rsmcrt_tpu_torch.transport import engine
+
+    kw = dict(kernels.fast_path_defaults(
+        fluence=cfg_kw.get("record_fluence", True), device=d))
+    kw.update(cfg_kw)
+    cfg = engine.TransportConfig(nphotons=n, n_lanes=lanes,
+                                 record_emission=True, **kw)
+    gen = torch.Generator(device=d)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    tl, bank_out, launched, _ = engine.simulate(scene, src, grid, gen, cfg,
+                                                bank=bank)
+    wall = time.perf_counter() - t0
+    launched = int(launched)
+    if launched != n:
+        raise AssertionError(f"{d}: launched {launched} of {n}")
+    tot = ([] if bank_out is None else
+           (totals(bank_out) / launched).double().cpu().tolist())
+    return np.concatenate([[float(tl.nscatt) / launched,
+                            float(tl.jmean.double().sum()) / launched, wall],
+                           tot, _profile(tl.jmean, grid.nxg) / launched])
+
+
+#: phase 20's runs: (name, photons); the CPU halves run in a child process
+PLAIN_RUNS = (("plain sphere", 16_000), ("spectral sphere", 32_000),
+              ("qmc slab", 100_000))
+
+
+def _plain_run(name, d, tmp):
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.grid import cart_grid
+
+    n = dict(PLAIN_RUNS)[name]
+    if name == "plain sphere":
+        parsed, scene = kernels.setup(_reduced(tmp, "sphere.toml", 32, n),
+                                      device=d)
+        return _sim(d, scene, parsed.source, parsed.settings.grid, n,
+                    chain_scatter=False)
+    if name == "spectral sphere":
+        scene, src = _spectral_sphere(d)
+        return _sim(d, scene, src, cart_grid(32, 32, 32, 1.0, 1.0, 1.0,
+                                             device=d), n)
+    parsed, scene = kernels.setup(SLAB, device=d)
+    return _sim(d, scene, parsed.source, parsed.settings.grid, n,
+                bank=parsed.detectors, lanes=16_384, record_fluence=False,
+                qmc_source=True)
+
+
+def _plain_cpu_child(tmp, out):
+    """Phase 20's CPU halves, in a child process; results to ``out``."""
+    torch.set_num_threads(2)
+    np.savez(out, **{name.replace(" ", "_"): _plain_run(
+        name, torch.device("cpu"), tmp) for name, _ in PLAIN_RUNS})
+
+
+def start_plain_cpu(tmp):
+    import multiprocessing
+
+    out = tmp / "plain_cpu.npz"
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_plain_cpu_child, args=(tmp, out), daemon=True)
+    proc.start()
+    return proc, out
+
+
+def phase_plain_card_vs_cpu(dev, tmp, card, cpu_run):
+    """The plain walk on the sphere (32^3, 16,000 photons; phase 5's
+    gates), a spectral sphere (32^3, 32,000 photons; nscatt and path
+    within 4%) and a ``qmc_source`` slab (res/validation1.toml, 100,000
+    photons on 16,384 lanes; Rd and Td at the reference's gate on both)
+    on the card and on the CPU (``cpu_run`` from
+    :func:`start_plain_cpu`)."""
+    proc, out = cpu_run
+    card_res = {name: _plain_run(name, dev, tmp) for name, _ in PLAIN_RUNS}
+    proc.join()
+    if proc.exitcode != 0:
+        raise AssertionError(f"plain-walk CPU runs exited {proc.exitcode}")
+    cpu_res = np.load(out)
+    for name, n in PLAIN_RUNS:
+        c, h = card_res[name], cpu_res[name.replace(" ", "_")]
+        log(f"[plain-card-vs-cpu] {name}, {n} photons: nscatt {c[0]:.4f} "
+            f"vs {h[0]:.4f}, path/photon {c[1]:.5f} vs {h[1]:.5f}, "
+            f"detectors/radial profile head {np.round(c[3:6], 5).tolist()}"
+            f" vs {np.round(h[3:6], 5).tolist()}; wall {c[2]:.2f} s (card)"
+            f" vs {h[2]:.2f} s (CPU, child process) [{card}]")
+        if name == "plain sphere":
+            rel = np.abs(c[3:] - h[3:]) / np.maximum(h[3:], 1e-9)
+            ok = abs(c[0] - h[0]) < 1.0 and abs(c[1] - h[1]) / h[1] < 0.02 \
+                and bool(np.all(rel < 0.1))
+        elif name == "spectral sphere":
+            ok = abs(c[0] - h[0]) / h[0] < 0.04 \
+                and abs(c[1] - h[1]) / h[1] < 0.04
+        else:
+            ok = all(abs(r[3] - 0.09739) < 0.005
+                     and abs(r[4] - 0.66096) < 0.008 for r in (c, h))
+        if not ok:
+            raise AssertionError(f"{name}: card and CPU disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -896,26 +1383,33 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     deposit = phase_kernel(dev, card)
+    signed = phase_signed(dev, card)
     window = phase_window(dev, card)
     window_launches = phase_window_path(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        omg_cpu = start_omg_cpu(tmp)
+        children = [start_omg_cpu(tmp), start_plain_cpu(tmp)]
         try:
-            # the gate phases run beside the child's CPU run, the measured
-            # runs (sphere, slab, bench path, omg) mostly after it
+            # the gate phases run beside the children's CPU runs, the
+            # measured runs (sphere, slab, bench path, omg) mostly after
             phase_physics(dev, card)
             phase_card_vs_cpu(dev, tmp, card)
             phase_detectors_card_vs_cpu(dev, tmp, card)
             launches = phase_slice(dev, tmp, card)
-            phase_validation(dev, tmp, card)
+            analog = phase_validation(dev, tmp, card)
             phase_fluenceless(dev, card)
             launches += phase_omg(dev, tmp, card)
-            phase_omg_card_vs_cpu(card, dev, omg_cpu)
+            phase_omg_card_vs_cpu(card, dev, children[0])
             phase_scenes(dev, tmp, card)
+            launches += phase_dslit(dev, tmp, card)
+            launches += phase_spectra(dev, card)
+            launches += phase_survival(dev, card, analog)
+            launches += phase_history(dev, tmp, card, analog)
+            phase_plain_card_vs_cpu(dev, tmp, card, children[1])
         finally:
-            omg_cpu[0].kill()
-            omg_cpu[0].join()
+            for child in children:
+                child[0].kill()
+                child[0].join()
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     # the fluence walk's rows of one megastep of the sphere run, captured
     jmean = deposit["capture_jmean"]

@@ -99,7 +99,7 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         fn = lib.rsmcrt_deposit_add
-        fn.argtypes = [ptr, ptr, ptr, i64, i64, i32, ptr, ptr]
+        fn.argtypes = [ptr, ptr, ptr, i64, i64, i32, i32, ptr, ptr]
         fn.restype = ctypes.c_int
         fn = lib.rsmcrt_deposit_window
         fn.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, i32, i32, i32, ptr,

@@ -4,6 +4,11 @@ Usage::
 
     python -m rsmcrt_tpu_torch.cli res/sphere.toml
     python -m rsmcrt_tpu_torch.cli --device cpu --nphotons 4000 res/sphere.toml
+    python -m rsmcrt_tpu_torch.cli --survival-bias res/validation1.toml
+    python -m rsmcrt_tpu_torch.cli --kernel test res/scat_test2.toml
+
+The ``escape`` and ``inverse`` kernels are still to port (ROADMAP queue 1,
+item 12) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,26 +26,38 @@ def main(argv=None):
                     help="TOML parameter file")
     ap.add_argument("--kernel", default="default",
                     choices=["default", "test", "escape", "inverse"],
-                    help="simulation kernel (only 'default' is ported)")
+                    help="simulation kernel ('default' and 'test' are "
+                         "ported)")
     ap.add_argument("--data-dir", default="data")
     ap.add_argument("--nphotons", type=int, default=None,
                     help="override photon count")
     ap.add_argument("--lanes", type=int, default=None,
                     help="wavefront width (defaults by device)")
+    ap.add_argument("--survival-bias", action="store_true",
+                    help="weighted packets + Russian roulette "
+                         "(reference -DsurvivalBias)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain PyTorch path)")
     args = ap.parse_args(argv)
-    if args.kernel != "default":
+    if args.kernel in ("escape", "inverse"):
         raise NotImplementedError(
             f"the {args.kernel!r} kernel is not ported (ROADMAP queue 1, "
-            "items 10 and 12)")
+            "item 12: escape functions and the inverse kernel)")
 
-    from .kernels import default_MCRT
+    from . import kernels
 
-    default_MCRT(args.config, data_dir=args.data_dir,
-                 nphotons=args.nphotons, n_lanes=args.lanes,
-                 device=args.device)
+    if args.kernel == "test":
+        out = kernels.test_kernel(args.config, nphotons=args.nphotons,
+                                  n_lanes=args.lanes, device=args.device)
+        print("nscatt/photon:", out["nscatt"])
+        print("first moments:\n", out["moments1"])
+        print("second moments:\n", out["moments2"])
+        return 0
+    kernels.default_MCRT(args.config, data_dir=args.data_dir,
+                         nphotons=args.nphotons, n_lanes=args.lanes,
+                         survival_bias=args.survival_bias,
+                         device=args.device)
     return 0
 
 

@@ -2,15 +2,16 @@
 
 Parses the ``[source]``, ``[grid]``, ``[geometry]``, ``[[detectors]]``,
 ``[output]`` and ``[simulation]`` tables with the reference's defaults and
-error cases.  Parts the port does not run yet raise
-``NotImplementedError`` naming their ROADMAP item: the ``dslit``,
-``aperture`` and ``slm`` sources, spectra other than ``constant`` and the
-escape / inverse kernels' tables.
+error cases, every source kind and every spectrum type.  The escape and
+inverse kernels' tables are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import struct
 import tomllib
+import zlib
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
@@ -22,7 +23,7 @@ from .detectors.detectors import (AnnulusDetectors, CameraDetectors,
                                   CircleDetectors, DetectorBank,
                                   FibreDetectors)
 from .grid import CartGrid, cart_grid
-from .optics.piecewise import Constant
+from .optics.piecewise import Constant, piecewise1d, piecewise2d
 from .sources.sources import Source, build_source
 
 
@@ -82,19 +83,98 @@ def _get_vector(table, key, context, default=None):
     return np.asarray(v, np.float64)
 
 
-def _parse_spectrum(table, device):
-    """reference: parse_spectrum.f90:17-118 (constant spectra only)"""
+def _parse_spectrum(table, res_dir: Path, device):
+    """reference: parse_spectrum.f90:17-118"""
     stype = table.get("spectrum_type", "constant")
     if stype == "constant":
         wavelength = float(table.get("wavelength", 500.0))
         return Constant(torch.tensor(wavelength, dtype=torch.float32,
                                      device=device))
     if stype in ("1D", "2D"):
-        raise NotImplementedError(
-            f"spectrum_type {stype!r} is not ported (ROADMAP queue 1, "
-            "item 11: spectral optics)")
+        sfile = table.get("spectrum_file")
+        if sfile is None:
+            raise ConfigError(f"{stype} spectrum requires spectrum_file")
+        path = res_dir / sfile
+    if stype == "1D":
+        try:
+            arr = np.loadtxt(path)
+        except ValueError:
+            # the reference's loadtxt also reads comma-separated columns
+            # (its blood.dat asset)
+            arr = np.loadtxt(path, delimiter=",")
+        return piecewise1d(arr, device=device)
+    if stype == "2D":
+        cell = table.get("cell_size")
+        if not isinstance(cell, list) or len(cell) != 2:
+            raise ConfigError("Need a vector of size 2 for cell_size")
+        image = _load_png_grey(path) if path.suffix == ".png" \
+            else np.loadtxt(path)
+        return piecewise2d(cell[0], cell[1], image, device=device)
     raise ConfigError("Not a valid spectrum type! expected one of "
                       "['constant', '1D', '2D']")
+
+
+def _unfilter_row(filt: int, line: np.ndarray, prev: np.ndarray,
+                  nchan: int) -> np.ndarray:
+    """One PNG scanline with its filter undone (PNG spec section 9)."""
+    if filt == 0:
+        return line.copy()
+    if filt == 2:
+        return (line + prev) & 0xFF
+    if filt not in (1, 3, 4):
+        raise ConfigError("bad png filter")
+    out = np.zeros_like(line)
+    for i in range(line.size):
+        a = int(out[i - nchan]) if i >= nchan else 0
+        b = int(prev[i])
+        c = int(prev[i - nchan]) if i >= nchan else 0
+        if filt == 1:
+            pred = a
+        elif filt == 3:
+            pred = (a + b) // 2
+        else:
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+        out[i] = (int(line[i]) + pred) & 0xFF
+    return out
+
+
+def _load_png_grey(path: Path) -> np.ndarray:
+    """First channel of an 8-bit PNG as float64 ``[width, height]`` (the
+    stb_image orientation; reference parse_spectrum.f90:92-101), decoded
+    with zlib and the PNG row filters.  The same array as the JAX
+    package's loader takes when PIL is absent."""
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ConfigError(f"{path} is not a PNG")
+    pos, idat = 8, b""
+    width = height = bitdepth = colortype = None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        ctype = data[pos + 4:pos + 8]
+        chunk = data[pos + 8:pos + 8 + length]
+        if ctype == b"IHDR":
+            width, height, bitdepth, colortype = struct.unpack(
+                ">IIBB", chunk[:10])
+        elif ctype == b"IDAT":
+            idat += chunk
+        elif ctype == b"IEND":
+            break
+        pos += 12 + length
+    if bitdepth != 8:
+        raise ConfigError("only 8-bit PNGs supported")
+    nchan = {0: 1, 2: 3, 4: 2, 6: 4}[colortype]
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    stride = width * nchan
+    rows = raw[:height * (stride + 1)].reshape(height, stride + 1)
+    img = np.zeros((height, stride), np.int64)
+    prev = np.zeros(stride, np.int64)
+    for r in range(height):
+        prev = img[r] = _unfilter_row(int(rows[r, 0]),
+                                      rows[r, 1:].astype(np.int64), prev,
+                                      nchan)
+    return img.reshape(height, width, nchan)[:, :, 0].T.astype(np.float64)
 
 
 _CARDINALS = {"x": (1.0, 0.0, 0.0), "-x": (-1.0, 0.0, 0.0),
@@ -102,19 +182,14 @@ _CARDINALS = {"x": (1.0, 0.0, 0.0), "-x": (-1.0, 0.0, 0.0),
               "z": (0.0, 0.0, 1.0), "-z": (0.0, 0.0, -1.0)}
 
 
-def _parse_source(cfg: dict, settings: Settings, device):
-    """reference: parse_source.f90:17-264 (the point, pencil, uniform,
-    circular, focus and annulus sources)"""
+def _parse_source(cfg: dict, settings: Settings, res_dir: Path, device):
+    """reference: parse_source.f90:17-264"""
     table = cfg.get("source")
     if table is None:
         raise ConfigError("Simulation needs Source table")
     name = table.get("name", "point")
     settings.source = name
     settings.nphotons = int(table.get("nphotons", 1_000_000))
-    if name in ("dslit", "aperture", "slm"):
-        raise NotImplementedError(
-            f"source {name!r} is not ported (ROADMAP queue 1, item 10: "
-            "plain walk and phasor)")
 
     pos = None
     if name != "uniform":
@@ -149,7 +224,7 @@ def _parse_source(cfg: dict, settings: Settings, device):
         elif name == "uniform":
             raise ConfigError(f"Uniform source requires {pkey} variable")
 
-    spectrum = _parse_spectrum(table, device)
+    spectrum = _parse_spectrum(table, res_dir, device)
     kwargs = dict(
         position=pos, direction=direction,
         radius=float(table.get("radius", 0.5)),
@@ -413,10 +488,11 @@ def parse_params(filename: str | Path, res_dir: str | Path | None = None,
             f"the {kernel!r} kernel is not ported (ROADMAP queue 1, "
             "item 12: workloads)")
     filename = Path(filename)
+    res_dir = Path(res_dir) if res_dir is not None else filename.parent
     with open(filename, "rb") as fh:
         cfg = tomllib.load(fh)
     settings = Settings()
-    source, spectrum = _parse_source(cfg, settings, device)
+    source, spectrum = _parse_source(cfg, settings, res_dir, device)
     _parse_grid(cfg, settings, device)
     geometry = _parse_geometry(cfg, settings)
     detectors = _parse_detectors(cfg, settings, device)

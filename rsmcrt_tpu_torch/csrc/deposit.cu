@@ -1,5 +1,5 @@
 // Voxel deposit kernel for Hopper (sm_90a): tally[idx[i]] += val[i] for
-// every val[i] > 0, in place.
+// every val[i] > 0, in place; with SIGNED for every finite val[i] != 0.
 //
 // Replaces rsmcrt_tpu/transport/deposit.py::_deposit_kernel (reached through
 // deposit_delta), which accumulates per-chunk deposits into a VMEM-resident
@@ -26,7 +26,12 @@
 //   covers neighbouring rows (with rows 4 apart an instruction, the
 //   fluence walk's rows took longer on an H100);
 // - rows with !(val > 0) (dead and padded lanes, NaN) drop out; a warp
-//   whose slot keeps no row issues nothing for it;
+//   whose slot keeps no row issues nothing for it.  SIGNED (the phasor
+//   tally's w cos and w sin) keeps every finite val != 0 instead; the
+//   merging below depends only on which rows are kept and their indices,
+//   never on a value's sign, so a group whose values cancel still issues
+//   its RED (of the sum, possibly 0), as the plain twin adds every kept
+//   row;
 // - equal indices merge inside the thread, then across the warp
 //   (warp_combine.cuh): a slot whose kept rows share one index issues one
 //   RED (the one-voxel case costs one RED per window instead of 128);
@@ -34,16 +39,17 @@
 //   __match_any_sync, one RED per group; any other slot issues one RED per
 //   kept row, since MATCH.ANY costs more than the few REDs it would save.
 //
-// An index outside [0, size) with val > 0 is a caller bug: it is never
+// An index outside [0, size) on a kept row is a caller bug: it is never
 // written, and is counted into *bad (once per row) so the host can assert it
 // stays 0.  round_bf16 rounds each value to bfloat16 (nearest even) before
 // any sum, as deposit_delta's dot_dtype=bfloat16 does in the TPU kernel; the
-// val > 0 test is made on the float32 value, as there.
+// keep test is made on the float32 value, as there.
 
 #include "warp_combine.cuh"
 
 #define THREADS 256
 
+template <bool SIGNED>
 __global__ void __launch_bounds__(THREADS)
     deposit_add_kernel(float* __restrict__ tally,
                        const int32_t* __restrict__ idx,
@@ -62,7 +68,8 @@ __global__ void __launch_bounds__(THREADS)
   int nbad = 0;
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
-    const bool live = v[s] > 0.0f;
+    const bool live =
+        SIGNED ? (v[s] != 0.0f && isfinite(v[s])) : v[s] > 0.0f;
     ok[s] = live && j[s] >= 0 && (int64_t)j[s] < size;
     nbad += live && !ok[s];
     if (round_bf16) v[s] = round_to_bf16(v[s]);
@@ -77,15 +84,19 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // Launches on `stream`; returns cudaGetLastError() after the launch.
+// is_signed selects the SIGNED instantiation.
 extern "C" int rsmcrt_deposit_add(void* tally, const void* idx,
                                   const void* val, int64_t n, int64_t size,
-                                  int round_bf16, void* bad, void* stream) {
+                                  int round_bf16, int is_signed, void* bad,
+                                  void* stream) {
   if (n <= 0) return 0;
   // one warp a window: every window is in flight at once
   const int64_t rows_per_block = 128 * (THREADS / 32);
   const int64_t blocks = (n + rows_per_block - 1) / rows_per_block;
   const int vec = (((uintptr_t)idx | (uintptr_t)val) & 15u) == 0;
-  deposit_add_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  auto kernel =
+      is_signed ? deposit_add_kernel<true> : deposit_add_kernel<false>;
+  kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (float*)tally, (const int32_t*)idx, (const float*)val, n, size,
       round_bf16, vec, (int32_t*)bad);
   return (int)cudaGetLastError();

@@ -16,7 +16,7 @@ import torch
 
 from .detectors import detectors as D
 from .grid import CartGrid
-from .optics.piecewise import Constant
+from .optics.piecewise import Constant, Piecewise1D, Piecewise2D
 from .sdfs.scene import (VECTOR_PARAMS, PrimSpec, Scene,
                           SceneTables)
 from .sources.sources import Source
@@ -87,29 +87,39 @@ def scene_from_numpy(s, device="cpu", disp_funcs=None) -> Scene:
     group_params = [_group_params_from_numpy(sp, ref, gp, device)
                     for sp, ref, gp in zip(specs, s.specs, s.group_params)]
     tb = s.tables
-    if getattr(tb, "wavelengths", None) is not None:
-        raise NotImplementedError(
-            "spectral optical tables are not ported (ROADMAP queue 1, "
-            "item 11)")
+    wl = getattr(tb, "wavelengths", None)
     tables = SceneTables(mus=_t(tb.mus, device), mua=_t(tb.mua, device),
-                         hgg=_t(tb.hgg, device), n=_t(tb.n, device))
+                         hgg=_t(tb.hgg, device), n=_t(tb.n, device),
+                         wavelengths=None if wl is None else _t(wl, device))
     return Scene(group_params=group_params, tables=tables, specs=specs,
                  group_sizes=tuple(s.group_sizes), perm=tuple(s.perm),
                  layer_ids=tuple(s.layer_ids), n_prims=int(s.n_prims))
 
 
+def spectrum_from_numpy(sp, device="cpu"):
+    """A ``Constant``, ``Piecewise1D`` or ``Piecewise2D`` (or None), told
+    apart by the reference object's fields."""
+    if sp is None:
+        return None
+
+    def f(a):
+        return _t(a, device).to(torch.float32)
+
+    if hasattr(sp, "value"):
+        return Constant(f(sp.value))
+    if hasattr(sp, "width"):
+        return Piecewise2D(cdf=f(sp.cdf), width=int(sp.width),
+                           height=int(sp.height),
+                           cell_width=f(sp.cell_width),
+                           cell_height=f(sp.cell_height))
+    return Piecewise1D(x=f(sp.x), y=f(sp.y), cdf=f(sp.cdf))
+
+
 def source_from_numpy(src, device="cpu") -> Source:
-    spectrum = None
-    if src.spectrum is not None:
-        if not hasattr(src.spectrum, "value"):
-            raise NotImplementedError(
-                "only Constant spectra are ported (ROADMAP queue 1, "
-                "item 11)")
-        spectrum = Constant(_t(src.spectrum.value, device).to(
-            torch.float32))
     return Source(kind=src.kind,
                   params={k: _t(v, device) for k, v in src.params.items()},
-                  spectrum=spectrum, subtype=src.subtype)
+                  spectrum=spectrum_from_numpy(src.spectrum, device),
+                  subtype=src.subtype)
 
 
 _FAMILY_CLASS = {"circle": D.CircleDetectors,

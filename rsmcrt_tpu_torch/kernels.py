@@ -1,9 +1,10 @@
 """Simulation kernels: setup -> run -> finalise (port of
-``rsmcrt_tpu/kernels.py``, the forward ``default`` kernel; reference:
-src/kernelsMod.f90 default_MCRT :14, setup :2225, finalise :2321).
+``rsmcrt_tpu/kernels.py``: the forward ``default`` kernel and the ``test``
+kernel; reference: src/kernelsMod.f90 default_MCRT :14, test_kernel
+:2069, setup :2225, finalise :2321).
 
-The test kernel and the live tev viewer are still to port (ROADMAP queue
-1, items 10 and 14) and raise ``NotImplementedError``.
+The live tev viewer is still to port (ROADMAP queue 1, item 14) and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from . import default_device
 from .config import ParsedConfig, parse_params
+from .io.history import write_history
 from .io.writer import (read_checkpoint, write_checkpoint, write_data,
                         write_detected_photons)
 from .render import render_geometry
@@ -108,7 +110,10 @@ def run_MCRT(parsed: ParsedConfig, scene: Scene, nphotons=None,
     """Forward simulation (reference: run_MCRT, kernelsMod.f90:1790-1898),
     with periodic checkpointing via the chunked-progress callback.  Random
     numbers come from a ``torch.Generator`` on the scene's device seeded
-    with ``seed`` (default: the config's ``iseed``)."""
+    with ``seed`` (default: the config's ``iseed``).  ``history`` (or the
+    config's ``trackHistory``) keeps the paths of detected photons, 64
+    events each; ``record_phasor`` (default: the config's ``phasor``)
+    tallies the complex field.  Either takes the plain walk."""
     st = parsed.settings
     device = scene.device
     if st.tev:
@@ -136,7 +141,7 @@ def run_MCRT(parsed: ParsedConfig, scene: Scene, nphotons=None,
         roulette_chance=st.roulette_chance,
         **fast_path_defaults(fluence=record_fluence, device=device),
     )
-    cfg.check_ported(scene)
+    cfg.check_ported()
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed if seed is not None else st.iseed))
     grid = st.grid
@@ -163,6 +168,14 @@ def run_MCRT(parsed: ParsedConfig, scene: Scene, nphotons=None,
     if progress_bar:
         _console_pbar(int(launched), nphotons)
         print()
+    if track_history:
+        trunc, over = (int(v) for v in tallies.track_dropped)
+        if trunc or over:
+            # history losses are counted, never silent: ring-truncated
+            # early events of deep paths and per-chunk slot overflow
+            print(f"[history] dropped: {trunc} ring-truncated events, "
+                  f"{over} overflowed tracks (of "
+                  f"{int(tallies.track_count)} kept)")
     return SimResult(parsed=parsed, scene=scene, tallies=tallies, bank=bank,
                      launched=int(launched), steps=int(steps),
                      elapsed=elapsed)
@@ -197,6 +210,20 @@ def finalise(result: SimResult, data_dir: str | Path = "data",
         write_data(host(result.tallies.absorb),
                    data_dir / "absorb" / st.outfile_absorb,
                    overwrite=st.overwrite, metadata=metadata)
+    tl = result.tallies
+    if tl.phasor_re.shape[0] > 0:
+        # the complex field as magnitude and components
+        pre, pim = host(tl.phasor_re), host(tl.phasor_im)
+        mag = np.sqrt(pre * pre + pim * pim)
+        for name, vol in (("phasor.nrrd", mag), ("phasor_re.nrrd", pre),
+                          ("phasor_im.nrrd", pim)):
+            write_data(vol, data_dir / "phasor" / name,
+                       overwrite=st.overwrite, metadata=metadata)
+    n_tracks = int(tl.track_count)
+    if n_tracks > 0:
+        # the detected photons' paths (reference historyStack.f90)
+        write_history(tl.tracks.cpu().numpy(), n_tracks,
+                      data_dir / st.historyFilename)
     if result.bank is not None and result.bank.n_detectors > 0:
         write_detected_photons(result.bank, n, data_dir / "detectors")
     if verbose:
@@ -245,8 +272,9 @@ def default_MCRT(input_file: str | Path, data_dir="data", nphotons=None,
                  res_dir=None, device=None,
                  max_steps=2_000_000) -> SimResult:
     """The standard forward kernel (reference: kernelsMod.f90:14-82),
-    including checkpoint resume (:52-75).  ``max_steps`` bounds the
-    megasteps as in :func:`run_MCRT`."""
+    including checkpoint resume (:52-75).  ``survival_bias`` weights the
+    packets and plays roulette (reference -DsurvivalBias); ``max_steps``
+    bounds the megasteps as in :func:`run_MCRT`."""
     parsed, scene = setup(input_file, res_dir=res_dir, device=device)
     st = parsed.settings
     if verbose:
@@ -282,3 +310,29 @@ def default_MCRT(input_file: str | Path, data_dir="data", nphotons=None,
         write_data(img, Path(data_dir) / st.rendergeomfile, overwrite=True)
     finalise(result, data_dir=data_dir, verbose=verbose)
     return result
+
+
+def test_kernel(input_file: str | Path, end_early: bool = True,
+                nphotons=None, n_lanes=None, write_files=True,
+                res_dir=None, device=None):
+    """Validation kernel recording scatter-order position moments
+    (reference: test_kernel, kernelsMod.f90:2069-2182).  ``end_early``
+    stops each photon at its fifth scatter (counted, so nscatt/photon is
+    5).  Returns nscatt/photon, the first and second moments (``[4, 3]``,
+    orders 1..4, scaled by 10 and 100 as the reference scales them) and
+    the run; with ``write_files``, ``nscatt.dat`` and ``positions.dat``
+    go to the working directory, as the reference's do."""
+    parsed, scene = setup(input_file, res_dir=res_dir, device=device)
+    result = run_MCRT(parsed, scene, nphotons=nphotons, n_lanes=n_lanes,
+                      record_moments=True,
+                      max_scatter_order=4 if end_early else 0,
+                      max_steps=200_000)
+    n = result.launched
+    m1 = result.tallies.mom_pos.cpu().numpy() * 10.0 / n
+    m2 = result.tallies.mom_pos2.cpu().numpy() * 100.0 / n
+    nscatt = result.nscatt_per_photon
+    if write_files:
+        Path("nscatt.dat").write_text(f"{nscatt}\n")
+        Path("positions.dat").write_text("".join(
+            f"{row[0]} {row[1]} {row[2]}\n" for row in (*m1, *m2)))
+    return dict(nscatt=nscatt, moments1=m1, moments2=m2, result=result)

@@ -3,9 +3,13 @@
     python -m rsmcrt_tpu_torch.profile_megastep res/sphere.toml
     python -m rsmcrt_tpu_torch.profile_megastep --no-fluence \
         res/validation1.toml
+    python -m rsmcrt_tpu_torch.profile_megastep res/dslit.toml
+    python -m rsmcrt_tpu_torch.profile_megastep --plain res/sphere.toml
 
 Builds the config's forward run as ``kernels.run_MCRT`` does (detector
-bank, fast-path defaults), takes ``--warm`` megasteps so the lanes are in
+bank, fast-path defaults, the config's phasor and path history, which
+take the plain walk; ``--plain`` takes it for any config), takes
+``--warm`` megasteps so the lanes are in
 flight, times ``--steps`` megasteps on the host clock around synchronised
 work, then runs ``--profiled`` more (default ``--steps``) under
 ``torch.profiler`` and prints, per megastep: the wall time, the peak
@@ -34,6 +38,8 @@ def main(argv=None) -> int:
     ap.add_argument("config")
     ap.add_argument("--no-fluence", action="store_true",
                     help="fluence estimator off (detector workloads)")
+    ap.add_argument("--plain", action="store_true",
+                    help="the plain walk (chain_scatter off)")
     ap.add_argument("--warm", type=int, default=4)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--profiled", type=int, default=None,
@@ -51,13 +57,19 @@ def main(argv=None) -> int:
     fluence = not args.no_fluence
     parsed, scene = kernels.setup(args.config, device=dev)
     st = parsed.settings
+    fast = kernels.fast_path_defaults(fluence=fluence, device=dev)
+    if args.plain:
+        fast["chain_scatter"] = False
     cfg = engine.TransportConfig(
         nphotons=st.nphotons, n_lanes=kernels.default_lanes(st.nphotons,
                                                             dev),
         record_fluence=fluence, record_emission=True,
+        record_phasor=st.phasor,
+        history_len=64 if st.trackHistory else 0,
+        max_tracks=4096 if st.trackHistory else 0,
         roulette_bounces=st.roulette_bounces,
-        roulette_chance=st.roulette_chance,
-        **kernels.fast_path_defaults(fluence=fluence, device=dev))
+        roulette_chance=st.roulette_chance, **fast)
+    walk = "chained" if cfg.chains(scene) else "plain"
     gen = torch.Generator(device=dev)
     gen.manual_seed(st.iseed)
     carry = engine.init_carry(st.grid, cfg, bank=parsed.detectors)
@@ -70,9 +82,10 @@ def main(argv=None) -> int:
         return carry
 
     n_prof = args.steps if args.profiled is None else args.profiled
-    print(f"[profile] {args.config}: lanes {cfg.n_lanes}, dda_substeps "
-          f"{cfg.dda_substeps}, chain_respawns {cfg.chain_respawns}, "
-          f"fluence {fluence}, detectors "
+    print(f"[profile] {args.config}: {walk} walk, lanes {cfg.n_lanes}, "
+          f"dda_substeps {cfg.dda_substeps}, chain_respawns "
+          f"{cfg.chain_respawns}, fluence {fluence}, phasor "
+          f"{cfg.record_phasor}, history {cfg.history_len}, detectors "
           f"{0 if parsed.detectors is None else parsed.detectors.n_detectors}"
           f" [{card}]", flush=True)
     carry = steps(args.warm, carry)
@@ -99,7 +112,8 @@ def main(argv=None) -> int:
     per_step = dev_us / n_prof
     n_k = len(kern) / n_prof
     print(f"[profile] device kernels per megastep {n_k:.0f} "
-          f"({n_k / cfg.dda_substeps:.0f} per chain round); device time "
+          f"({n_k / cfg.dda_substeps:.0f} per round of dda_substeps); "
+          f"device time "
           f"per megastep {per_step / 1e3:.2f} ms; device busy "
           f"{per_step / 1e3 / (wall * 1e3):.1%} of the unprofiled wall")
     by_name = collections.Counter()

@@ -9,11 +9,9 @@ stacked along a leading member axis, plus a per-layer optical table.
 ``eval_scene`` evaluates each group by broadcasting over its members and
 permutes the columns back to the user's prim order.  Layer semantics
 match the reference: 0 = outside, i+1 = prim i (reference:
-src/kernelsMod.f90:1952).
-
-Spectral optical tables are still to port (ROADMAP queue 1, item 11:
-spectral optics); building a scene with them raises
-``NotImplementedError``.
+src/kernelsMod.f90:1952).  A scene with a prim of spectral optical
+properties gets ``[W, N+1]`` tables over ``W`` wavelength bins, which the
+transport interpolates per photon wavelength.
 """
 
 from __future__ import annotations
@@ -25,7 +23,8 @@ import numpy as np
 import torch
 
 from ..maths.transforms import apply_transform, identity
-from ..optics.properties import OptProps
+from ..optics.piecewise import sample_piecewise1d_at
+from ..optics.properties import OptProps, SpectralOptProps
 from . import primitives as sdp
 
 _PRIM_PARAM_NAMES = {
@@ -342,23 +341,20 @@ def _tree_stack(trees, device):
 
 @dataclass
 class SceneTables:
-    """Per-layer optical property table ``[N+1]``, index 0 = outside.
-    ``kappa`` and ``albedo`` are derived once, in float32, as the reference
-    derives them."""
+    """Per-layer optical property tables, index 0 = outside: ``[N+1]`` for
+    a monochromatic scene, ``[W, N+1]`` over ``wavelengths [W]`` for a
+    spectral one.  ``kappa`` and ``albedo`` are derived once, in float32,
+    as the reference derives them."""
 
     mus: torch.Tensor
     mua: torch.Tensor
     hgg: torch.Tensor
     n: torch.Tensor
-    wavelengths: object = None
+    wavelengths: Optional[torch.Tensor] = None
     kappa: torch.Tensor = field(init=False, repr=False)
     albedo: torch.Tensor = field(init=False, repr=False)
 
     def __post_init__(self):
-        if self.wavelengths is not None:
-            raise NotImplementedError(
-                "spectral optical tables are not ported (ROADMAP queue 1, "
-                "item 11: spectral optics)")
         self.kappa = self.mus + self.mua
         safe = torch.where(self.kappa > 0.0, self.kappa, 1.0)
         self.albedo = torch.where(self.mua < 1e-9, 1.0, self.mus / safe)
@@ -392,9 +388,12 @@ class Scene:
         return self.tables.mus.device
 
 
-def build_scene(prims: Sequence[PrimSpec], device=None) -> Scene:
+def build_scene(prims: Sequence[PrimSpec], device=None,
+                n_wavelength_bins: int = 64) -> Scene:
     """Group prims by structural signature and stack their parameter
-    trees."""
+    trees.  With any prim of :class:`SpectralOptProps`, the optical tables
+    are sampled at ``n_wavelength_bins`` wavelengths spanning every
+    spectral table (reference package: scene.py:455-490)."""
     if device is None:
         device = next(iter(_leaves(collect_params(prims[0])))).device
     groups: dict = {}
@@ -420,20 +419,43 @@ def build_scene(prims: Sequence[PrimSpec], device=None) -> Scene:
     for col, user_idx in enumerate(concat_order):
         perm[user_idx] = col
 
-    def opt_field(name, sentinel):
-        vals = [sentinel] + [getattr(pr.opt, name) for pr in prims]
-        return torch.as_tensor(np.asarray(vals, np.float32), device=device)
-
     for pr in prims:
-        if not isinstance(pr.opt, OptProps):
-            raise NotImplementedError(
-                f"optical properties {type(pr.opt).__name__} are not ported "
-                "(ROADMAP queue 1, item 11: spectral optics)")
+        if not isinstance(pr.opt, (OptProps, SpectralOptProps)):
+            raise TypeError(
+                f"optical properties {type(pr.opt).__name__} are neither "
+                "OptProps nor SpectralOptProps")
+    spectral = [pr.opt for pr in prims
+                if isinstance(pr.opt, SpectralOptProps)]
+    wgrid = None
+    if spectral:
+        tabs = [getattr(o, f"{q}_tab") for o in spectral
+                for q in ("mus", "mua", "hgg", "n")]
+        lo = min(float(t.x[0]) for t in tabs)
+        hi = max(float(t.x[-1]) for t in tabs)
+        wgrid = torch.as_tensor(np.linspace(lo, hi, n_wavelength_bins,
+                                            dtype=np.float32), device=device)
+
+    def opt_field(name, sentinel):
+        if wgrid is None:
+            vals = [sentinel] + [getattr(pr.opt, name) for pr in prims]
+            return torch.as_tensor(np.asarray(vals, np.float32),
+                                   device=device)
+        cols = [torch.full_like(wgrid, sentinel)]
+        for pr in prims:
+            if isinstance(pr.opt, SpectralOptProps):
+                tab = getattr(pr.opt, name + "_tab").to(device)
+                cols.append(sample_piecewise1d_at(tab, wgrid))
+            else:
+                cols.append(torch.full_like(wgrid,
+                                            float(getattr(pr.opt, name))))
+        return torch.stack(cols, dim=-1)  # [W, N+1]
+
     tables = SceneTables(
         mus=opt_field("mus", 0.0),
         mua=opt_field("mua", 0.0),
         hgg=opt_field("hgg", 0.0),
         n=opt_field("n", 1.0),
+        wavelengths=wgrid,
     )
     return Scene(
         group_params=group_params, tables=tables, specs=tuple(specs),

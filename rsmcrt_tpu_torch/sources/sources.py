@@ -3,14 +3,15 @@ reference: src/photon.f90:159-1043).
 
 A :class:`Source` is a kind plus parameter tensors; ``sample`` consumes a
 block of uniforms ``u [B, n]`` and emits a whole wavefront of photons.
-The ``point``, ``pencil``, ``uniform``, ``circular``, ``focus`` (square,
-circle, gaussian) and ``annulus`` (tophat, besselAnnulus, gaussian) kinds
-with a ``Constant`` spectrum are ported.  Their fixed frames (the
-circular source's mirrored branch, the focus and annulus rotations) are
-decided once on the host when the source is built, not per photon.  The
-``dslit``, ``aperture`` and ``slm`` kinds (ROADMAP queue 1, item 10: the
-phasor path) and ``escape_points`` (item 12) raise
-``NotImplementedError``.
+Every kind of the reference is ported but ``escape_points`` (ROADMAP
+queue 1, item 12), which raises ``NotImplementedError``: ``point``,
+``pencil``, ``uniform``, ``circular``, ``focus`` (square, circle,
+gaussian), ``annulus`` (tophat, besselAnnulus, gaussian), the coherent
+``dslit`` and ``aperture`` sources of the phasor tally, and the ``slm``
+image source; wavelengths come from a ``Constant``, ``Piecewise1D`` or
+``Piecewise2D`` spectrum.  The fixed frames (the circular source's
+mirrored branch, the focus and annulus rotations) are decided once on the
+host when the source is built, not per photon.
 """
 
 from __future__ import annotations
@@ -23,16 +24,15 @@ import torch
 from ..constants import TWOPI
 from ..grid import CartGrid
 from ..maths import transforms as T
-from ..optics.piecewise import Constant
+from ..optics.piecewise import (Constant, Piecewise1D, Piecewise2D,
+                                sample_piecewise1d, sample_piecewise2d)
 
 # uniforms consumed per source kind (the reference's SOURCE_UNIFORM_COUNT)
 SOURCE_UNIFORM_COUNT = {"point": 3, "pencil": 1, "uniform": 3,
-                        "circular": 3, "focus": 3, "annulus": 5}
+                        "circular": 3, "focus": 3, "annulus": 5, "dslit": 6,
+                        "aperture": 5, "slm": 3}
 
-_LATER = {"dslit": "item 10: plain walk and phasor",
-          "aperture": "item 10: plain walk and phasor",
-          "slm": "item 10: plain walk and phasor",
-          "escape_points": "item 12: workloads"}
+_LATER = {"escape_points": "item 12: workloads"}
 
 _BEAM_TYPES = {"focus": ("square", "circle", "gaussian"),
                "annulus": ("tophat", "besselAnnulus", "gaussian")}
@@ -88,7 +88,7 @@ def _focus_annulus_frame(params):
 class Source:
     kind: str
     params: dict = field(default_factory=dict)
-    spectrum: object = None  # Constant | None
+    spectrum: object = None  # Constant | Piecewise1D | Piecewise2D | None
     subtype: str = ""
     #: fixed launch frame tensors, built on the host from ``params``
     frame: dict = field(init=False, repr=False, default_factory=dict)
@@ -100,11 +100,12 @@ class Source:
                     f"source kind {self.kind!r} is not ported (ROADMAP "
                     f"queue 1, {_LATER[self.kind]})")
             raise ValueError(f"No such source {self.kind!r}")
-        if self.spectrum is not None and not isinstance(self.spectrum,
-                                                        Constant):
-            raise NotImplementedError(
-                f"spectrum {type(self.spectrum).__name__} is not ported "
-                "(ROADMAP queue 1, item 11: spectral optics)")
+        if self.spectrum is not None and not isinstance(
+                self.spectrum, (Constant, Piecewise1D, Piecewise2D)):
+            raise TypeError(
+                f"cannot sample wavelength from {type(self.spectrum)}")
+        if self.kind == "slm" and not isinstance(self.spectrum, Piecewise2D):
+            raise TypeError("slm source requires a 2D spectrum")
         btype = self.subtype or "gaussian"
         if self.kind in _BEAM_TYPES and btype not in _BEAM_TYPES[self.kind]:
             raise ValueError(f"No such beam type {btype!r}")
@@ -120,7 +121,12 @@ class Source:
 
 
 def n_source_uniforms(source: Source) -> int:
-    return SOURCE_UNIFORM_COUNT[source.kind]
+    n = SOURCE_UNIFORM_COUNT[source.kind]
+    if isinstance(source.spectrum, Piecewise2D):
+        # 2D image spectra draw two in-cell jitter uniforms (reference
+        # sample2D, piecewise.f90:171-190)
+        n += 2
+    return n
 
 
 def build_source(kind: str, spectrum=None, device="cpu", **params) -> Source:
@@ -137,10 +143,34 @@ def build_source(kind: str, spectrum=None, device="cpu", **params) -> Source:
     return Source(kind=kind, params=p, spectrum=spectrum, subtype=subtype)
 
 
-def _spectrum_sample(spectrum, u):
+def _spectrum_sample(spectrum, u, u_full):
+    """A wavelength per lane from the selection uniform ``u``; a 2D image
+    spectrum jitters within its cell with the last two columns of
+    ``u_full`` and gives the sample's x coordinate (reference
+    photon.f90:293/:347 with sample2D, piecewise.f90:171-190)."""
     if spectrum is None:
         return torch.full_like(u, 500.0)
-    return spectrum.value.to(u.device).expand(u.shape)
+    if isinstance(spectrum, Constant):
+        return spectrum.value.to(u.device).expand(u.shape)
+    if isinstance(spectrum, Piecewise1D):
+        return sample_piecewise1d(spectrum, u)
+    x, _ = sample_piecewise2d(spectrum, u, u_full[:, -2], u_full[:, -1])
+    return x
+
+
+def _coherent_launch(dx, dy, dz):
+    """Direction and launch phase of the coherent slit / aperture sources.
+    The phase is the transverse excess ``t2 / (dist + |dz|)`` of the
+    slit-to-screen distance over the axial ``|dz|``, computed without
+    cancellation: the full distance (the reference's float64 phase,
+    photon.f90:747/:826) has a float32 ulp of ~2 wavelengths, and a
+    per-wavelength constant offset cancels in ``|E|^2``."""
+    t2 = dx * dx + dy * dy
+    adz = torch.abs(dz)
+    dist = torch.sqrt(t2 + dz * dz)
+    phase = t2 / (dist + adz)
+    direction = torch.stack([dx / dist, dy / dist, -adz / dist], dim=-1)
+    return direction, phase
 
 
 def _edge_nudge(pos, grid: CartGrid, shift: float):
@@ -190,9 +220,48 @@ def sample(source: Source, grid: CartGrid, u: torch.Tensor):
     fr = source.frame
     B = u.shape[0]
     phase = torch.zeros((B,), dtype=u.dtype, device=u.device)
-    wavelength = _spectrum_sample(source.spectrum, u[:, 0 if kind == "pencil"
-                                                     else 2])
-    if kind == "point":
+    spec = source.spectrum
+    if kind == "slm":
+        # reference: photon.f90:159-212, an image source; the wavelength
+        # is fixed and the image offset of 100 cells is the reference's
+        # own, whatever the grid
+        x, y = sample_piecewise2d(spec, u[:, 0], u[:, 1], u[:, 2])
+        f = np.float32
+        sx = (x - 100.0) / float(f(grid.nxg) / (f(2.0) * f(grid.xmax)))
+        sy = (y - 100.0) / float(f(grid.nyg) / (f(2.0) * f(grid.ymax)))
+        pos = torch.stack([sx, sy, p["position"][2].expand(B)], dim=-1)
+        direction = _normalise(p["direction"]).expand(B, 3)
+        return pos, direction, phase, torch.full((B,), 500e-9,
+                                                 dtype=u.dtype,
+                                                 device=u.device)
+    wavelength = _spectrum_sample(
+        spec, u[:, 0 if kind in ("pencil", "dslit", "aperture") else 2], u)
+    if kind == "dslit":
+        # reference: photon.f90:712-780
+        a, b = 60.0 * wavelength, 20.0 * wavelength
+        x1 = torch.where(u[:, 1] > 0.5, a / 2.0 + b * u[:, 2],
+                         -a / 2.0 - b * u[:, 2])
+        y1 = (u[:, 3] - 0.5) * b
+        z2 = 5.0 - (1e-5 * (2.0 * (5.0 / 400.0)))
+        x2 = (2.0 * u[:, 4] - 1.0) * 5.0
+        y2 = (2.0 * u[:, 5] - 1.0) * 5.0
+        z1 = (10000.0 * wavelength) - 5.0
+        pos = torch.stack([x2, y2, torch.full_like(x2, z2)], dim=-1)
+        direction, phase = _coherent_launch(x2 - x1, y2 - y1, z2 - z1)
+    elif kind == "aperture":
+        # reference: photon.f90:782-848
+        apwid = 200e-6
+        b = apwid / 2.0
+        fno = 4.95
+        x1 = (2.0 * u[:, 1] - 1.0) * b
+        y1 = (2.0 * u[:, 2] - 1.0) * b
+        z1 = (1.0 / ((((fno / apwid) ** 2) / 2.0) * wavelength)) - 0.5
+        x2 = u[:, 3] - 0.5
+        y2 = u[:, 4] - 0.5
+        z2 = 0.5 - (1e-5 * (2.0 * 0.5 / 400.0))
+        pos = torch.stack([x2, y2, torch.full_like(x2, z2)], dim=-1)
+        direction, phase = _coherent_launch(x2 - x1, y2 - y1, z2 - z1)
+    elif kind == "point":
         # reference: photon.f90:311-359
         phi = u[:, 0] * TWOPI
         cost = 2.0 * u[:, 1] - 1.0

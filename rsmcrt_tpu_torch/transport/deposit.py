@@ -9,7 +9,8 @@ have a counterpart here:
   running tally in place, which saves zeroing and re-adding the whole grid
   on every call; :func:`deposit_delta` keeps the JAX signature on top of
   it.  On a CUDA tensor it launches ``csrc/deposit.cu``; on a CPU tensor
-  it runs :func:`deposit_add_plain`.
+  it runs :func:`deposit_add_plain`.  ``signed=True`` keeps every finite
+  ``val != 0`` row in place of every ``val > 0`` row (the phasor tally).
 - ``deposit_window_packed`` (the Pallas ``_window_kernel``) sums packed
   ``(ix << 20) | (iy << 10) | iz`` keys into a fresh grid.  On a CUDA
   tensor it launches ``csrc/deposit_window.cu``; on a CPU tensor it runs
@@ -76,7 +77,7 @@ def _bad_counter(device: torch.device) -> torch.Tensor:
 
 def out_of_range_count(device) -> int:
     """Deposits whose index lay outside the tally, summed over every call
-    on ``device``: live (``val > 0``) deposits of :func:`deposit_add_`
+    on ``device``: kept rows of :func:`deposit_add_`
     kernel launches and live keys of :func:`deposit_window_packed` (a
     caller bug; must stay 0)."""
     device = torch.device(device)
@@ -85,12 +86,21 @@ def out_of_range_count(device) -> int:
     return int(_bad_counter(device).item())
 
 
+def _kept(val: torch.Tensor, signed: bool) -> torch.Tensor:
+    """The rows a deposit keeps: ``val > 0``, or with ``signed`` every
+    finite ``val != 0``."""
+    if signed:
+        return (val != 0.0) & torch.isfinite(val)
+    return val > 0.0
+
+
 def deposit_add_plain(tally_flat: torch.Tensor, flat_idx: torch.Tensor,
-                      val: torch.Tensor, dot_dtype=torch.float32
-                      ) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel: ``tally[idx] += val`` over
-    ``val > 0``, in place."""
-    live = val > 0.0
+                      val: torch.Tensor, dot_dtype=torch.float32,
+                      signed: bool = False) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel: ``tally[idx] += val`` over the
+    kept rows (``val > 0``; with ``signed``, finite ``val != 0``), in
+    place."""
+    live = _kept(val, signed)
     return tally_flat.index_add_(0, flat_idx[live].long(),
                                  _as_dot(val[live], dot_dtype))
 
@@ -110,8 +120,11 @@ def _check(tally_flat, flat_idx, val):
 
 
 def deposit_add_(tally_flat: torch.Tensor, flat_idx: torch.Tensor,
-                 val: torch.Tensor, dot_dtype=torch.float32) -> torch.Tensor:
-    """Add every ``val > 0`` into ``tally_flat[flat_idx]`` in place.
+                 val: torch.Tensor, dot_dtype=torch.float32,
+                 signed: bool = False) -> torch.Tensor:
+    """Add every ``val > 0`` into ``tally_flat[flat_idx]`` in place; with
+    ``signed``, every finite ``val != 0`` (one kernel, the keep test a
+    template parameter).
 
     ``tally_flat``: float32 ``[nx*ny*nz]``; ``flat_idx``: int32, flattened
     as ``voxel_flat_index`` does (``(x*ny + y)*nz + z``); ``val``: float32
@@ -122,7 +135,7 @@ def deposit_add_(tally_flat: torch.Tensor, flat_idx: torch.Tensor,
     dev = tally_flat.device
     if dev.type == "cpu":
         deposit_plain_calls += 1
-        return deposit_add_plain(tally_flat, flat_idx, val, dot_dtype)
+        return deposit_add_plain(tally_flat, flat_idx, val, dot_dtype, signed)
     if dev.type != "cuda":
         raise NotImplementedError(f"no deposit kernel for {dev.type}")
     idx = flat_idx.reshape(-1).contiguous()
@@ -136,7 +149,7 @@ def deposit_add_(tally_flat: torch.Tensor, flat_idx: torch.Tensor,
     with torch.cuda.device(dev):
         rc = lib.rsmcrt_deposit_add(
             tally_flat.data_ptr(), idx.data_ptr(), v.data_ptr(), n,
-            tally_flat.numel(), int(round_bf16),
+            tally_flat.numel(), int(round_bf16), int(signed),
             _bad_counter(dev).data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

@@ -1,6 +1,6 @@
 """Wavefront photon transport engine (port of
-``rsmcrt_tpu/transport/engine.py``: the chained forward path, with or
-without the fluence estimator, and detector banks).
+``rsmcrt_tpu/transport/engine.py``: the forward path with its transport
+options, and detector banks).
 
 A batch of photon lanes advances in lockstep, one *megastep* per
 :func:`transport_step` call:
@@ -8,33 +8,44 @@ A batch of photon lanes advances in lockstep, one *megastep* per
 1. **Analysis**: dead lanes respawn from the source while the photon
    budget lasts; lanes with no segment left resolve boundary events
    (eps-nudge probe, Fresnel reflect / refract / cross) and pick their
-   next segment from the analytic raycast bound and the remaining optical
-   depth (reference inttau2.f90:73-146, 209-337).
-2. **Chained DDA walk** (:func:`_chained_dda`): every lane walks up to
-   ``dda_substeps`` voxel-wall intervals, consuming scatter, absorption,
-   surface and in-chain respawn events in place (reference update_grids,
-   inttau2.f90:408-445, and kernelsMod.f90:1958-1974).  Without the
-   fluence estimator every round jumps a whole segment instead
-   (inttau2.f90:446-462).  Detector banks test each new segment.
-3. **Interaction** leftovers at completed segment ends.
+   next segment from the analytic raycast bound, the march over the
+   non-analytic prims and the remaining optical depth (reference
+   inttau2.f90:73-146, 155-192, 209-337).  Detector banks test it.
+2. **Walk**, one of two, chosen as the reference chooses
+   (:meth:`TransportConfig.chains`):
 
-The three voxel tallies change only through
+   - the *chained* walk (:func:`_chained_dda`): every lane walks up to
+     ``dda_substeps`` voxel-wall intervals, consuming scatter,
+     absorption, surface and in-chain respawn events in place (reference
+     update_grids, inttau2.f90:408-445, and kernelsMod.f90:1958-2066);
+     without the fluence estimator every round jumps a whole segment
+     (inttau2.f90:446-462);
+   - the *plain* walk: one segment a megastep, its first ``dda_substeps``
+     voxel intervals from a closed-form merge of the three axes' wall
+     crossings (:func:`_closed_form_dda`), or one jump without the
+     fluence estimator.  Path history, the phasor tally, a scene with
+     non-analytic prims and no in-chain march budget, and
+     ``chain_scatter=False`` take it.
+3. **Interaction** at completed segment ends: analog scatter / absorb or
+   survival bias with roulette, the path history ring and the phasor.
+
+The voxel tallies change only through
 :func:`~rsmcrt_tpu_torch.transport.deposit.deposit_add_` (the CUDA deposit
-kernel on the card), once per tally per megastep on the ``[B, K]`` lists.
-Detector bins change once per megastep in the analysis phase
-(:func:`record_hits`) and once after the chain (:func:`flush_bins`).
+kernel on the card), once per tally per megastep; the phasor's signed
+rows use its ``signed`` option.  Detector bins change once per megastep
+in the analysis phase (:func:`record_hits`) and once after the chain
+(:func:`flush_bins`).
 
-Ported: analog absorption, fluence on or off, emission, every scene
-(analytic prims by closed-form raycasts, the rest by the bounded march of
-:func:`_segment_probe`), in-chain respawn, detector banks, bounce
-roulette, scatter-order moments and ``max_scatter_order``.  Options of
-:class:`TransportConfig` that select anything else raise
-``NotImplementedError`` naming their ROADMAP item.
+Not ported: escape-function attribution and the pMC inverse statistics
+(``escape_shape``, ``inverse_prim``, ROADMAP queue 1 item 12), which raise
+``NotImplementedError``.
 
-Random numbers: each megastep consumes three uniform blocks in (0, 1)
-(:class:`StepDraws`), drawn from the run's ``torch.Generator`` unless the
-caller injects them -- the parity tests hand both packages the blocks
-``jax.random`` draws for the reference.
+Random numbers: each megastep consumes up to three uniform blocks in
+(0, 1) (:class:`StepDraws`), drawn from the run's ``torch.Generator``
+unless the caller injects them -- the parity tests hand both packages the
+blocks ``jax.random`` draws for the reference.  With ``qmc_source`` the
+source block is a scrambled Halton block keyed by the global photon
+index, rotated by shifts drawn once a run (``SimCarry.qmc_shifts``).
 """
 
 from __future__ import annotations
@@ -46,9 +57,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..constants import TWOPI
+from ..constants import CHANCE, THRESHOLD, TWOPI
 from ..detectors.detectors import check_bins, flush_bins, record_hits
 from ..grid import CartGrid, f32, get_voxel, voxel_flat_index
+from ..maths.qmc import halton_block, halton_shifts
 from ..sdfs import raycast
 from ..sdfs.scene import Scene, eval_scene, scene_layer
 from ..sources.sources import Source, n_source_uniforms
@@ -105,38 +117,35 @@ class TransportConfig:
     inverse_prim: int = 0
     chain_respawns: int = 1
 
-    def check_ported(self, scene=None):
-        """Raise for options that select a path this package lacks.  With
-        a ``scene``, also for the reference's fallback to the plain walk:
-        a scene with non-analytic prims and no in-chain march budget
-        (reference engine.py:1353-1355)."""
+    def check_ported(self):
+        """Raise for options that select a path this package lacks."""
         todo = [
-            (self.survival_bias, "survival_bias",
-             "item 10: transport options"),
-            (self.record_phasor, "record_phasor",
-             "item 10: transport options"),
-            (self.history_len > 0, "history_len > 0",
-             "item 10: transport options"),
-            (self.qmc_source, "qmc_source", "item 10: transport options"),
-            (tuple(self.escape_shape) != (0, 0), "escape_shape",
-             "item 12: workloads"),
-            (self.inverse_prim > 0, "inverse_prim", "item 12: workloads"),
-            (not self.chain_scatter, "chain_scatter=False",
-             "item 10: plain walk"),
+            (tuple(self.escape_shape) != (0, 0), "escape_shape"),
+            (self.inverse_prim > 0, "inverse_prim"),
         ]
-        for bad, name, item in todo:
+        for bad, name in todo:
             if bad:
                 raise NotImplementedError(
                     f"TransportConfig {name} is not ported "
-                    f"(ROADMAP queue 1, {item})")
+                    "(ROADMAP queue 1, item 12: workloads)")
         if self.chain_respawns < 1:
             raise ValueError("chain_respawns must be >= 1")
-        if (scene is not None and self.chain_march_iters <= 0
-                and not all(raycast.analytic_column_mask(scene))):
-            raise NotImplementedError(
-                "chain_march_iters=0 on a scene with non-analytic prims "
-                "selects the plain walk, which is not ported (ROADMAP "
-                "queue 1, item 10: plain walk)")
+
+    def chains(self, scene) -> bool:
+        """Whether a megastep on ``scene`` takes the chained walk, as the
+        reference decides (engine.py:1353-1355): ``chain_scatter``, no
+        path history, no phasor, and an all-analytic scene or an in-chain
+        march budget.  Otherwise the plain walk."""
+        return (self.chain_scatter and self.history_len == 0
+                and not self.record_phasor
+                and (self.chain_march_iters > 0
+                     or all(raycast.analytic_column_mask(scene))))
+
+    def respawns_in_chain(self, scene) -> bool:
+        """In-chain respawn runs on the chained walk unless the source is
+        quasi-random (its photon index is the analysis phase's)."""
+        return (self.chains(scene) and self.chain_respawn
+                and not self.qmc_source)
 
 
 @dataclass
@@ -174,16 +183,19 @@ class SimCarry:
     bank: object  # DetectorBank | None
     launched: torch.Tensor  # 0-d int32
     step: torch.Tensor  # 0-d int32
+    #: the run's Cranley-Patterson rotation for ``qmc_source`` (drawn at
+    #: the first megastep that needs it)
+    qmc_shifts: Optional[torch.Tensor] = None
 
 
 class StepDraws(NamedTuple):
     """The uniform blocks one megastep consumes, each in (0, 1):
-    ``u_all [B, n_src_u + 7]``, ``uc [B, K, 4]`` (chain rounds) and
-    ``u_rsp [C*B, n_src_u + 1]`` (in-chain respawn candidates, or None
-    when in-chain respawn is off)."""
+    ``u_all [B, n_src_u + 7]``, ``uc [B, K, 4]`` (chain rounds; None on
+    the plain walk) and ``u_rsp [C*B, n_src_u + 1]`` (in-chain respawn
+    candidates, or None when in-chain respawn is off)."""
 
     u_all: torch.Tensor
-    uc: torch.Tensor
+    uc: Optional[torch.Tensor]
     u_rsp: Optional[torch.Tensor]
 
 
@@ -194,12 +206,16 @@ def _uniform(shape, generator, device):
 
 
 def draw_step(generator: torch.Generator, B: int, cfg: TransportConfig,
-              source: Source, device) -> StepDraws:
+              source: Source, device, scene=None) -> StepDraws:
+    """The blocks a megastep of ``cfg`` on ``scene`` consumes (without a
+    scene: those of the chained walk)."""
     n_src_u = n_source_uniforms(source)
     u_all = _uniform((B, n_src_u + _N_TRANSPORT_U), generator, device)
-    uc = _uniform((B, cfg.dda_substeps, 4), generator, device)
-    u_rsp = None
-    if cfg.chain_respawn:
+    chains = cfg.chains(scene) if scene is not None else True
+    uc = u_rsp = None
+    if chains:
+        uc = _uniform((B, cfg.dda_substeps, 4), generator, device)
+    if chains and cfg.chain_respawn and not cfg.qmc_source:
         u_rsp = _uniform((cfg.chain_respawns * B, n_src_u + 1), generator,
                          device)
     return StepDraws(u_all, uc, u_rsp)
@@ -263,10 +279,38 @@ def _seg_cap(grid: CartGrid) -> float:
                  + np.float32(1.0))
 
 
+def _opt_lookup(tables, arr, layer, wavelength):
+    """Per-lane optical property ``arr`` at ``layer``: ``arr[N+1, ...]``
+    for a monochromatic scene; for a spectral one ``arr[W, N+1, ...]``
+    interpolated linearly between the two wavelength rows around each
+    photon's wavelength (reference package: engine.py:316-335)."""
+    if tables.wavelengths is None:
+        return arr[layer.long()]
+    wl = tables.wavelengths
+    W = wl.shape[0]
+    wbin = torch.clamp(torch.searchsorted(wl, wavelength) - 1, 0, W - 2)
+    lo, hi = wl[wbin], wl[wbin + 1]
+    frac = torch.clamp((wavelength - lo) / torch.clamp(hi - lo, min=1e-30),
+                       0.0, 1.0)
+    a0 = arr[wbin, layer.long()]
+    a1 = arr[wbin + 1, layer.long()]
+    frac = frac.reshape(frac.shape + (1,) * (a0.ndim - frac.ndim))
+    return a0 + (a1 - a0) * frac
+
+
 def _take_col(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """a [B, N], idx [B] -> a[b, idx[b]] with idx clipped."""
     i = torch.clamp(idx, 0, a.shape[-1] - 1).long()
     return a.gather(-1, i[:, None])[:, 0]
+
+
+def _first_axis(sel: torch.Tensor) -> torch.Tensor:
+    """``sel [B, 3]`` with only each row's first True kept: the axis a
+    wall-crossing tie advances (the reference's ``cumsum(sel) == 1``;
+    torch's scan over a last axis of 3 took 0.2 ms a call at 32,768 rows
+    on the card, an ``argmax`` takes a reduction's time)."""
+    first = torch.argmax(sel.to(torch.uint8), dim=-1, keepdim=True)
+    return sel & (torch.arange(3, device=sel.device) == first)
 
 
 def _wall_streams(pos, direction, cellf, grid):
@@ -366,7 +410,7 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
                  tables, land_eps, seg_cap, mom_pos, mom_pos2,
                  bank=None, respawn=None):
     """DDA walk with in-line scatter, absorption, Fresnel-boundary and
-    respawn chaining (analog absorption).
+    respawn chaining.
 
     With the fluence estimator on, each of the K rounds deposits the
     interval up to the lane's next voxel wall or segment end; without it
@@ -380,7 +424,11 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
     record slots and the photon budget allow.  Voxels are tracked
     incrementally (the crossing axis steps the integer cell).  A detector
     ``bank`` tests each new segment (``check_bins``); its bins are added
-    once after the loop (``flush_bins``).
+    once after the loop (``flush_bins``).  With survival bias every
+    interaction deposits ``w (1 - albedo)`` (one ``[B, K]`` list) and
+    plays roulette below ``THRESHOLD`` (kernelsMod.f90:2036-2066);
+    otherwise an absorption ends the photon and fills one of its lane's
+    absorption record slots.
     """
     dtype = pos.dtype
     dev = pos.device
@@ -414,6 +462,9 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
     # chain_respawns + 1 photons per megastep and each absorbs at most
     # once; respawn is blocked once every slot is used
     n_slots = cfg.chain_respawns + 1
+    survival = cfg.survival_bias
+    thr, ch = f32(THRESHOLD), f32(CHANCE)
+    ab_flats, ab_vals = [], []  # survival bias: one pair a round
     absorb_ws = [torch.zeros((B,), dtype=dtype, device=dev)
                  for _ in range(n_slots)]
     absorb_fls = [torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -429,7 +480,7 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
     # (one test per straight segment, inttau2.f90:195-200; the analysis
     # phase's segments were tested by record_hits)
     dect_acc = {}
-    # current-layer optical properties, one gather of [B, 4] per round
+    # current-layer optical properties, one lookup of [B, 4] per round
     opt_pack = torch.stack(
         [tables.kappa, tables.albedo, tables.hgg, tables.n], dim=-1)
     lanes = torch.arange(B, device=dev)
@@ -465,18 +516,31 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
         p_end = p0 + rem[:, None] * dirc
         w_dep = w_l  # weight before any roulette reweight this round
 
-        o_cur = opt_pack[layer_l.long()]
+        o_cur = _opt_lookup(tables, opt_pack, layer_l, wavelength_l)
         albedo_l, g_l, n1 = o_cur[:, 1], o_cur[:, 2], o_cur[:, 3]
 
-        # --- interaction events: analog scatter-or-die ---------------------
-        do_sc = inter & (u_r[:, 0] < albedo_l)
-        do_ab = inter & ~do_sc
-        ab_ok = do_ab & valid
-        for s in range(n_slots):
-            m = ab_ok & (n_ab == s)
-            absorb_ws[s] = torch.where(m, w_l, absorb_ws[s])
-            absorb_fls[s] = torch.where(m, flat, absorb_fls[s])
-        n_ab = n_ab + ab_ok.to(torch.int32)
+        # --- interaction events --------------------------------------------
+        if not survival:
+            # analog scatter-or-die; at most one absorption per hosted
+            # photon, so one record slot each
+            do_sc = inter & (u_r[:, 0] < albedo_l)
+            do_ab = inter & ~do_sc
+            ab_ok = do_ab & valid
+            for s in range(n_slots):
+                m = ab_ok & (n_ab == s)
+                absorb_ws[s] = torch.where(m, w_l, absorb_ws[s])
+                absorb_fls[s] = torch.where(m, flat, absorb_fls[s])
+            n_ab = n_ab + ab_ok.to(torch.int32)
+        else:
+            w_abs = torch.where(inter, w_l * (1.0 - albedo_l), 0.0)
+            w_l = w_l - w_abs
+            ab_flats.append(flat)
+            ab_vals.append(torch.where(valid, w_abs, 0.0))
+            roul = inter & (w_l < thr)
+            surv = roul & (u_r[:, 0] < ch)
+            w_l = torch.where(surv, w_l / ch, w_l)
+            do_ab = roul & ~surv
+            do_sc = inter & ~do_ab
         died = died | do_ab
 
         # --- surface events: nudge-across probe + Fresnel branch ----------
@@ -486,7 +550,7 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
         outside = srf & (new_layer == 0)
         samel = srf & (new_layer == layer_l)
         crossing = srf & (new_layer != layer_l) & (new_layer != 0)
-        n2 = tables.n[new_layer.long()]
+        n2 = _opt_lookup(tables, tables.n, new_layer, wavelength_l)
         needf = crossing & (n1 != n2)
         ri = fresnel_coeff(dirc, nvec, n1, n2)
         refl = needf & (u_r[:, 0] <= ri)
@@ -536,8 +600,9 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
              rc_allow) = respawn
             C = rc_good.shape[0]
             k = torch.clamp(cand_k, max=C - 1).long()
-            resp_try = died & rc_allow[k, lanes] & (cand_k < C) & \
-                (n_ab < n_slots)
+            resp_try = died & rc_allow[k, lanes] & (cand_k < C)
+            if not survival:
+                resp_try = resp_try & (n_ab < n_slots)
             resp = resp_try & rc_good[k, lanes]
             cand_k = cand_k + resp_try.to(torch.int32)
             died = died & ~resp
@@ -554,7 +619,7 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
 
         newtau = -torch.log(u_r[:, 3])
         # the crossing nudge is charged at the NEW medium's kappa
-        kappa2 = tables.kappa[nlayer.long()]
+        kappa2 = _opt_lookup(tables, tables.kappa, nlayer, wavelength_l)
         tau_ev = torch.where(
             do_sc, newtau,
             torch.where(trans,
@@ -633,7 +698,7 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
             # (respawned lanes start their new stream next round)
             adv = walking & ~ends & ~resp
             selm = (t_next == c[:, None]) & adv[:, None]
-            am = selm & (torch.cumsum(selm.to(torch.int32), dim=-1) == 1)
+            am = _first_axis(selm)
             stepdir = torch.where(dirc > 0.0, 1, -1).to(torch.int32)
             cell = cell + torch.where(am, stepdir, 0)
             t_next = torch.clamp(t_next + torch.where(am, dt_ax, 0.0),
@@ -654,21 +719,122 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
         n_resp=n_resp,
         flat_k=torch.stack(flats, dim=-1) if fluence else None,
         deps_k=torch.stack(vals, dim=-1) if fluence else None,
-        absorb_w=torch.stack(absorb_ws, dim=-1),
-        absorb_flat=torch.stack(absorb_fls, dim=-1), n_scat=n_scat,
+        # survival bias: [B, K] per-round deposits; analog: [B, slots]
+        absorb_w=torch.stack(ab_vals if survival else absorb_ws, dim=-1),
+        absorb_flat=torch.stack(ab_flats if survival else absorb_fls,
+                                dim=-1), n_scat=n_scat,
         n_inter=n_inter, mom_pos=mom_pos, mom_pos2=mom_pos2, cand_k=cand_k,
         bank=bank)
+
+
+def _plain_march(scene, pos, direction, ds, tau_dist, avail, interior, eps,
+                 ana_mask, march_iters, seg_cap):
+    """The plain walk's capped sphere-trace march over the non-analytic
+    prims (reference package: engine.py:1391-1424): ``march_iters`` scene
+    evaluations, each after an advance by the last certified distance,
+    then a final advance that needs no evaluation (the next megastep's
+    analysis evaluates there anyway).  Returns the segment length and
+    whether it ends at the optical-depth distance."""
+    na_cols = torch.as_tensor([i for i, a in enumerate(ana_mask) if not a],
+                              dtype=torch.long, device=pos.device)
+
+    def d_na(ds_all):
+        return torch.amin(torch.abs(ds_all.index_select(-1, na_cols)),
+                          dim=-1)
+
+    s = torch.zeros_like(tau_dist)
+    d_cur = torch.minimum(d_na(ds), avail)
+    moving = interior
+    hit = torch.zeros_like(interior)
+    for _ in range(march_iters):
+        hit_tau = moving & (s + d_cur >= tau_dist)
+        s = torch.where(hit_tau, tau_dist, torch.where(moving, s + d_cur, s))
+        hit = hit | hit_tau
+        moving = moving & ~hit_tau
+        dm = torch.minimum(d_na(eval_scene(scene, pos + s[:, None]
+                                           * direction)), avail - s)
+        d_cur = torch.where(moving, dm, d_cur)
+        moving = moving & (d_cur >= eps)
+    hit_tau = moving & (s + d_cur >= tau_dist)
+    s = torch.where(hit_tau, tau_dist, torch.where(moving, s + d_cur, s))
+    return torch.clamp(s, max=seg_cap), hit | hit_tau
+
+
+def _closed_form_dda(grid, K, pos, direction, walk, weight):
+    """The plain walk's first ``K`` voxel intervals of the straight
+    segment ``[0, walk]`` from ``pos`` (reference package:
+    engine.py:1695-1755).  The walls each axis crosses form an arithmetic
+    stream; ``K`` rounds of a three-way merge take the leading crossing
+    and advance the first axis that holds it (a tie advances one axis a
+    round, leaving a zero-length interval).  Each interval is attributed
+    to the voxel of its midpoint.  Returns ``(flat_k, deps_k, lengths,
+    valid_k, end)``: ``[B, K]`` voxel indices, deposits ``length *
+    weight`` (0 outside the grid), interval lengths, their validity, and
+    the distance walked."""
+    B = pos.shape[0]
+    cellf = torch.floor((pos + grid.half_extent) / grid.voxel_size)
+    t_next, dt_ax = _wall_streams(pos, direction, cellf, grid)
+    cuts = []
+    for _ in range(K):
+        c = torch.amin(t_next, dim=-1)
+        sel = t_next == c[:, None]
+        adv = _first_axis(sel)
+        t_next = torch.clamp(t_next + torch.where(adv, dt_ax, 0.0), max=_BIG)
+        cuts.append(c)
+    cuts = torch.stack(cuts, dim=-1)  # [B, K] ascending
+    cuts = torch.where(cuts < walk[:, None], cuts, _BIG)
+    end = torch.minimum(torch.where(cuts[:, K - 1] < _BIG, cuts[:, K - 1],
+                                    walk), walk)
+    lo = torch.cat([torch.zeros((B, 1), dtype=pos.dtype, device=pos.device),
+                    cuts[:, :K - 1]], dim=1)
+    hi = torch.minimum(torch.where(cuts < _BIG, cuts, walk[:, None]),
+                       walk[:, None])
+    hi[:, K - 1] = end
+    lengths = torch.clamp(hi - lo, min=0.0)
+    mids = pos[:, None, :] + direction[:, None, :] * (0.5 * (lo + hi))[
+        ..., None]
+    flat_k, valid_k = voxel_flat_index(grid, get_voxel(grid, mids))
+    deps_k = torch.where(valid_k, lengths * weight[:, None], 0.0)
+    return flat_k, deps_k, lengths, valid_k, end
+
+
+def _flush_tracks(tl, cfg, hitw, history, hist_n):
+    """Copy the paths of lanes whose segment hit a detector into the next
+    free track slots (reference: history%write on hit,
+    detector_base.f90:158-160), in place; returns the new track count and
+    loss counters.  Lanes past ``max_tracks`` are counted as overflow; a
+    path longer than the ring counts its truncated events."""
+    M, H = cfg.max_tracks, cfg.history_len
+    hits_any = torch.any(hitw > 0.0, dim=-1)
+    slot = tl.track_count + torch.cumsum(hits_any.to(torch.int32), dim=0,
+                                         dtype=torch.int32) - 1
+    ok = hits_any & (slot < M)
+    # lanes with nothing to keep rewrite the last slot with the value it
+    # ends up with, so that no write races a kept lane's
+    last = ok & (slot == M - 1)
+    last_val = torch.where(
+        torch.any(last),
+        torch.sum(torch.where(last[:, None, None], history, 0.0), dim=0),
+        tl.tracks[M - 1])
+    tl.tracks.index_put_(
+        (torch.where(ok, slot, M - 1).long(),),
+        torch.where(ok[:, None, None], history, last_val))
+    raw = tl.track_count + torch.sum(hits_any, dtype=torch.int32)
+    count = torch.clamp(raw, max=M)
+    trunc = torch.sum(torch.where(hits_any, torch.clamp(hist_n - H, min=0),
+                                  0), dtype=torch.int32)
+    return count, tl.track_dropped + torch.stack([trunc, raw - count])
 
 
 def transport_step(carry: SimCarry, scene: Scene, source: Source,
                    grid: CartGrid, generator: Optional[torch.Generator],
                    cfg: TransportConfig, nphotons=None,
                    draws: Optional[StepDraws] = None) -> SimCarry:
-    """One megastep of the wavefront.  The voxel tallies of ``carry`` are
-    updated in place; the returned carry holds the new lane state.
-    ``draws`` injects the megastep's uniforms; otherwise they are drawn
-    from ``generator``."""
-    cfg.check_ported(scene)
+    """One megastep of the wavefront.  The voxel tallies (and the track
+    slots) of ``carry`` are updated in place; the returned carry holds the
+    new lane state.  ``draws`` injects the megastep's uniforms; otherwise
+    they are drawn from ``generator``."""
+    cfg.check_ported()
     if nphotons is None:
         nphotons = cfg.nphotons
     st = carry.state
@@ -679,9 +845,10 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
     tables = scene.tables
     eps, land_eps, _ = _scalars(cfg)
     seg_cap = _seg_cap(grid)
+    chaining = cfg.chains(scene)
     n_src_u = n_source_uniforms(source)
     if draws is None:
-        draws = draw_step(generator, B, cfg, source, dev)
+        draws = draw_step(generator, B, cfg, source, dev, scene)
     u_src = draws.u_all[:, :n_src_u]
     u = draws.u_all[:, n_src_u:]
 
@@ -693,6 +860,15 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
     rank = torch.cumsum(dead.to(torch.int32), dim=0, dtype=torch.int32) - 1
     respawn = dead & (rank < budget)
     n_respawn = torch.minimum(torch.sum(dead, dtype=torch.int32), budget)
+
+    qmc_shifts = carry.qmc_shifts
+    if cfg.qmc_source and n_src_u > 0:
+        # scrambled Halton keyed by the global photon index, one rotation
+        # for the whole run
+        if qmc_shifts is None:
+            qmc_shifts = halton_shifts(n_src_u, generator, dev)
+        u_src = halton_block(torch.clamp(carry.launched + rank, min=0),
+                             n_src_u, qmc_shifts)
 
     src_pos, src_dir, src_phase, src_wl = sample_source(source, grid, u_src)
     r = respawn[:, None]
@@ -712,6 +888,16 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
     alive = st.alive | respawn
     launched = carry.launched + n_respawn
 
+    history, hist_n = st.history, st.hist_n
+    if cfg.history_len > 0:
+        # the ring starts with the launch position (reference pushes at
+        # emission, kernelsMod.f90:1954); written in place on a copy
+        history = history.clone()
+        entry = torch.cat([pos, torch.zeros((B, 1), dtype=dtype,
+                                            device=dev)], dim=-1)
+        history[:, 0] = torch.where(r, entry, history[:, 0])
+        hist_n = torch.where(respawn, 1, hist_n)
+
     # photons emitted outside the grid die immediately
     vox, vox_valid = voxel_flat_index(grid, get_voxel(grid, pos))
     alive = alive & (~respawn | vox_valid)
@@ -730,7 +916,7 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
     alive = alive & (~respawn | (layer > 0))
     need_seg = need_seg & alive
 
-    kappa = tables.kappa[layer.long()]
+    kappa = _opt_lookup(tables, tables.kappa, layer, wavelength)
     tau_dist = torch.where(kappa > 0.0, tau / torch.clamp(kappa, min=1e-12),
                            torch.inf)
 
@@ -754,8 +940,8 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
     same = on_boundary & (new_layer == layer)
     crossing = on_boundary & (new_layer != layer) & (new_layer != 0)
 
-    n1 = tables.n[layer.long()]
-    n2 = tables.n[new_layer.long()]
+    n1 = _opt_lookup(tables, tables.n, layer, wavelength)
+    n2 = _opt_lookup(tables, tables.n, new_layer, wavelength)
     need_fresnel = crossing & (n1 != n2)
 
     # which prim's surface was crossed (inttau2.f90:251-277)
@@ -796,11 +982,13 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
         overbounced = overbounced | (trapped & ~survive_rr)
 
     # --- segment selection: min(optical-depth distance, next surface
-    # along the ray, cap).  The surface distance comes from the analytic
-    # raycast where the prims have closed forms and from the bounded march
-    # for the rest, classified exactly like the in-chain probe (surface /
-    # continuation), so spawn segments enter the chain with usable flags.
+    # along the ray, cap), the surface from the analytic raycast where the
+    # prims have closed forms and from a bounded march for the rest ------
     ana_mask = raycast.analytic_column_mask(scene)
+    zeros_b = torch.zeros_like(interior)
+    hit_prim = torch.zeros((B,), dtype=torch.int32, device=dev)
+    cont_new = zeros_b
+    interior_srf = zeros_b
     if all(ana_mask):
         # the reference's closed-form branch (engine.py:1380-1390), which
         # unlike the probe does not clamp the length at 0
@@ -811,12 +999,30 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
                                    max=seg_cap)
         interior_interact = (tau_dist <= avail) & torch.isfinite(tau_dist)
         interior_srf = ~interior_interact & (avail <= seg_cap) & fin
-        cont_new = torch.zeros_like(interior)
-    else:
+    elif chaining:
+        # classified like the in-chain probe (surface / continuation), so
+        # spawn segments enter the chained walk with usable flags
         interior_len, interior_interact, interior_srf, cont_p, hit_prim = \
             _segment_probe(scene, pos, direction, tau_dist, seg_cap,
                            land_eps, eps, ana_mask, cfg.march_iters)
         cont_new = interior & cont_p
+    else:
+        # the plain walk: the analytic bound (no prim index) and a march
+        # over the rest; the segment ends at no known surface
+        if any(ana_mask):
+            t_ana = raycast.ray_bound(scene, pos, direction)
+            avail = torch.where(torch.isfinite(t_ana), t_ana - land_eps,
+                                torch.inf)
+        else:
+            avail = torch.full((B,), torch.inf, dtype=dtype, device=dev)
+        if cfg.march_iters > 0:
+            interior_len, interior_interact = _plain_march(
+                scene, pos, direction, ds, tau_dist, avail, interior, eps,
+                ana_mask, cfg.march_iters, seg_cap)
+        else:
+            bound = torch.minimum(d_sdf, avail)
+            interior_len = torch.minimum(bound, tau_dist)
+            interior_interact = tau_dist <= bound
     same_len = torch.minimum(smallstep, tau_dist)
     seg_new = torch.where(
         interior, interior_len,
@@ -827,7 +1033,7 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
     srf_new = interior & interior_srf
 
     layer = torch.where(transmitting, new_layer, layer)
-    kappa_seg = tables.kappa[layer.long()]
+    kappa_seg = _opt_lookup(tables, tables.kappa, layer, wavelength)
     tau = torch.where(need_seg,
                       torch.clamp(tau - seg_new * kappa_seg, min=0.0), tau)
     direction = torch.where(
@@ -844,117 +1050,209 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
     alive = alive & ~(escaped | outside_after | overbounced)
 
     # --- detectors: one test per whole segment (reference hit protocol,
-    # inttau2.f90:195-200) ------------------------------------------------
+    # inttau2.f90:195-200); with path history, the paths of lanes that
+    # hit are kept ------------------------------------------------------
     bank = carry.bank
+    track_count, track_dropped = tl.track_count, tl.track_dropped
     if bank is not None:
-        bank = record_hits(bank, pos, direction,
-                           torch.where(alive & need_seg, seg_rem, 0.0),
-                           torch.where(alive, weight, 0.0))
+        seg_len = torch.where(alive & need_seg, seg_rem, 0.0)
+        w_hit = torch.where(alive, weight, 0.0)
+        if cfg.history_len > 0 and cfg.max_tracks > 0:
+            bank, hitw, _ = record_hits(bank, pos, direction, seg_len,
+                                        w_hit, want_hit_matrix=True)
+            track_count, track_dropped = _flush_tracks(tl, cfg, hitw,
+                                                       history, hist_n)
+        else:
+            bank = record_hits(bank, pos, direction, seg_len, w_hit)
 
     # =================================================================
-    # Phase 2: chained DDA walk
+    # Phase 2: the walk
     # =================================================================
-    respawn_cand = None
-    if cfg.chain_respawn:
-        # per-megastep source candidates [C, B, ...] for in-chain respawn;
-        # candidate k is allowed only when even all-B consumption of
-        # candidates 0..k stays within the photon budget
-        C = cfg.chain_respawns
-        u_rsp = draws.u_rsp
-        r_pos, r_dir, r_phase, r_wl = sample_source(source, grid,
-                                                    u_rsp[:, :n_src_u])
-        r_tau = -torch.log(u_rsp[:, n_src_u])
-        # layer with the analysis phase's eps-nudge: a candidate sampled ON
-        # a surface takes the layer a forward probe lands in
-        r_ds = eval_scene(scene, r_pos)
-        r_d_sdf = torch.amin(torch.abs(r_ds), dim=-1)
-        r_probe = r_pos + (r_d_sdf + 2.0 * eps)[:, None] * r_dir
-        r_layer = torch.where(r_d_sdf < eps,
-                              scene_layer(eval_scene(scene, r_probe)),
-                              scene_layer(r_ds))
-        r_flat, r_vok = voxel_flat_index(grid, get_voxel(grid, r_pos))
-        r_good = (r_layer > 0) & r_vok
-        ks = torch.arange(1, C + 1, device=dev, dtype=torch.int32)
-        allow = ((launched + ks * B) <= nphotons)[:, None].expand(C, B)
+    K = cfg.dda_substeps
+    deps_k = None
+    if chaining:
+        respawn_cand = None
+        if cfg.respawns_in_chain(scene):
+            # per-megastep source candidates [C, B, ...] for in-chain
+            # respawn; candidate k is allowed only when even all-B
+            # consumption of candidates 0..k stays within the budget
+            C = cfg.chain_respawns
+            u_rsp = draws.u_rsp
+            r_pos, r_dir, r_phase, r_wl = sample_source(source, grid,
+                                                        u_rsp[:, :n_src_u])
+            r_tau = -torch.log(u_rsp[:, n_src_u])
+            # layer with the analysis phase's eps-nudge: a candidate
+            # sampled ON a surface takes the layer a forward probe lands in
+            r_ds = eval_scene(scene, r_pos)
+            r_d_sdf = torch.amin(torch.abs(r_ds), dim=-1)
+            r_probe = r_pos + (r_d_sdf + 2.0 * eps)[:, None] * r_dir
+            r_layer = torch.where(r_d_sdf < eps,
+                                  scene_layer(eval_scene(scene, r_probe)),
+                                  scene_layer(r_ds))
+            r_flat, r_vok = voxel_flat_index(grid, get_voxel(grid, r_pos))
+            r_good = (r_layer > 0) & r_vok
+            ks = torch.arange(1, C + 1, device=dev, dtype=torch.int32)
+            allow = ((launched + ks * B) <= nphotons)[:, None].expand(C, B)
 
-        def cb(a):
-            return a.reshape((C, B) + a.shape[1:])
+            def cb(a):
+                return a.reshape((C, B) + a.shape[1:])
 
-        respawn_cand = (cb(r_pos), cb(r_dir), cb(r_tau), cb(r_layer),
-                        cb(r_phase), cb(r_wl), cb(r_good), allow)
+            respawn_cand = (cb(r_pos), cb(r_dir), cb(r_tau), cb(r_layer),
+                            cb(r_phase), cb(r_wl), cb(r_good), allow)
 
-    out = _chained_dda(
-        scene, grid, cfg, draws.uc, pos, direction, weight, tau, seg_rem,
-        seg_interact, seg_srf, seg_cont, seg_prim, layer, alive, steps,
-        bounces, wavelength, phase, tables, land_eps, seg_cap, tl.mom_pos,
-        tl.mom_pos2, bank=bank, respawn=respawn_cand)
-    pos, direction, weight, tau = (out["pos"], out["dir"], out["weight"],
-                                   out["tau"])
-    seg_rem, seg_interact, seg_srf = (out["seg_rem"], out["seg_interact"],
-                                      out["seg_srf"])
-    seg_cont, seg_prim, layer, alive = (out["seg_cont"], out["seg_prim"],
-                                        out["layer"], out["alive"])
-    steps, bounces = out["steps"], out["bounces"]
-    wavelength, phase = out["wavelength"], out["phase"]
-    launched = launched + out["n_resp"]
-    if cfg.record_emission and respawn_cand is not None:
-        # launch voxels of consumed in-chain candidates (voxel-valid only);
-        # candidate k was consumed iff the lane's final cand_k exceeds k
-        consumed = out["cand_k"][None, :] > torch.arange(
-            cfg.chain_respawns, device=dev)[:, None]  # [C, B]
-        deposit_add_(tl.emission, r_flat,
-                     (consumed.reshape(-1) & r_vok).to(dtype))
-    bank = out["bank"]
-    deps_k = out["deps_k"]
-    if cfg.record_fluence:
-        deposit_add_(tl.jmean, out["flat_k"].reshape(-1), deps_k.reshape(-1))
+        out = _chained_dda(
+            scene, grid, cfg, draws.uc, pos, direction, weight, tau,
+            seg_rem, seg_interact, seg_srf, seg_cont, seg_prim, layer,
+            alive, steps, bounces, wavelength, phase, tables, land_eps,
+            seg_cap, tl.mom_pos, tl.mom_pos2, bank=bank,
+            respawn=respawn_cand)
+        pos, direction, weight, tau = (out["pos"], out["dir"],
+                                       out["weight"], out["tau"])
+        seg_rem, seg_interact, seg_srf = (out["seg_rem"],
+                                          out["seg_interact"],
+                                          out["seg_srf"])
+        seg_cont, seg_prim, layer, alive = (out["seg_cont"],
+                                            out["seg_prim"], out["layer"],
+                                            out["alive"])
+        steps, bounces = out["steps"], out["bounces"]
+        wavelength, phase = out["wavelength"], out["phase"]
+        launched = launched + out["n_resp"]
+        if cfg.record_emission and respawn_cand is not None:
+            # launch voxels of consumed in-chain candidates (voxel-valid
+            # only); candidate k was consumed iff the lane's final cand_k
+            # exceeds k
+            consumed = out["cand_k"][None, :] > torch.arange(
+                cfg.chain_respawns, device=dev)[:, None]  # [C, B]
+            deposit_add_(tl.emission, r_flat,
+                         (consumed.reshape(-1) & r_vok).to(dtype))
+        bank = out["bank"]
+        deps_k = out["deps_k"]
+        if cfg.record_fluence:
+            deposit_add_(tl.jmean, out["flat_k"].reshape(-1),
+                         deps_k.reshape(-1))
+        mom_pos, mom_pos2 = out["mom_pos"], out["mom_pos2"]
+    else:
+        mom_pos, mom_pos2 = tl.mom_pos, tl.mom_pos2
+        walk = torch.where(alive & (seg_rem > 0.0), seg_rem, 0.0)
+        if cfg.record_fluence:
+            flat_k, deps_k, lengths, valid_k, end = _closed_form_dda(
+                grid, K, pos, direction, walk, weight)
+            deposit_add_(tl.jmean, flat_k.reshape(-1), deps_k.reshape(-1))
+            # the photon leaves the grid mid-segment: it dies at the wall
+            # (reference update_grids tflag, inttau2.f90:437-440)
+            alive = alive & ~torch.any(~valid_k & (lengths > 0.0), dim=-1)
+        else:
+            # no fluence deposits: jump the whole segment (inttau2.f90:
+            # 446-462); a segment ending outside the grid kills the photon
+            end = walk
+            _, valid_end = voxel_flat_index(
+                grid, get_voxel(grid, pos + end[:, None] * direction))
+            alive = alive & ((walk <= 0.0) | valid_end)
+        pos = pos + end[:, None] * direction
+        phase = phase + end
+        seg_rem = (torch.clamp(seg_rem - end, min=0.0) if cfg.record_fluence
+                   else torch.where(walk > 0.0, 0.0, seg_rem))
 
     # =================================================================
-    # Phase 3: interactions at completed segment ends (the rare lane that
-    # leaves the chain with an exhausted segment flagged to interact)
+    # Phase 3: interactions at completed segment ends (on the chained
+    # walk, the rare lane that leaves the chain with an exhausted segment
+    # flagged to interact)
     # =================================================================
-    nscatt = tl.nscatt + out["n_scat"].to(dtype)
+    nscatt = tl.nscatt
+    if chaining:
+        nscatt = nscatt + out["n_scat"].to(dtype)
     seg_done = seg_rem <= 0.0
     interact = alive & seg_done & seg_interact
     seg_interact = seg_interact & ~seg_done
 
-    g = tables.hgg[layer.long()]
-    albedo = tables.albedo[layer.long()]
+    g = _opt_lookup(tables, tables.hgg, layer, wavelength)
+    albedo = _opt_lookup(tables, tables.albedo, layer, wavelength)
     cost = sample_hg_cost(u[:, _U_HG_COST], g)
     phi = TWOPI * u[:, _U_HG_PHI]
     dir_scattered = scatter_direction(direction, cost, phi)
     vox_now, vox_now_valid = voxel_flat_index(grid, get_voxel(grid, pos))
 
-    # reference noBiasPropagation (kernelsMod.f90:1958-1974)
-    do_scatter = interact & (u[:, _U_ALBEDO] < albedo)
-    do_absorb = interact & ~do_scatter
-    ab_w_ph3 = torch.where(do_absorb & vox_now_valid, weight, 0.0)
-    # the chain's LAST absorb slot and the phase-3 leftover are mutually
-    # exclusive per lane (a lane with every slot used died on its last
-    # hosted photon and cannot be alive here), so they share a column
-    ab_w_c, ab_flat_c = out["absorb_w"], out["absorb_flat"]
-    S = ab_w_c.shape[1]
-    flat_last = torch.where(ab_w_c[:, S - 1] > 0.0, ab_flat_c[:, S - 1],
-                            vox_now)
-    ab_idx = torch.cat([ab_flat_c[:, :S - 1], flat_last[:, None]], dim=-1)
-    ab_val = torch.cat([ab_w_c[:, :S - 1],
-                        (ab_w_c[:, S - 1] + ab_w_ph3)[:, None]], dim=-1)
-    deposit_add_(tl.absorb, ab_idx.reshape(-1), ab_val.reshape(-1))
+    if not cfg.survival_bias:
+        # reference noBiasPropagation (kernelsMod.f90:1958-1974)
+        do_scatter = interact & (u[:, _U_ALBEDO] < albedo)
+        do_absorb = interact & ~do_scatter
+        ab_w = torch.where(do_absorb & vox_now_valid, weight, 0.0)
+        ab_idx = vox_now
+        if chaining:
+            # the chain's LAST absorb slot and this leftover are mutually
+            # exclusive per lane (a lane with every slot used died on its
+            # last hosted photon and cannot be alive here), so they share
+            # a column
+            ab_w_c, ab_flat_c = out["absorb_w"], out["absorb_flat"]
+            S = ab_w_c.shape[1]
+            flat_last = torch.where(ab_w_c[:, S - 1] > 0.0,
+                                    ab_flat_c[:, S - 1], vox_now)
+            ab_idx = torch.cat([ab_flat_c[:, :S - 1], flat_last[:, None]],
+                               dim=-1)
+            ab_w = torch.cat([ab_w_c[:, :S - 1],
+                              (ab_w_c[:, S - 1] + ab_w)[:, None]], dim=-1)
+        deposit_add_(tl.absorb, ab_idx.reshape(-1), ab_w.reshape(-1))
+        died = do_absorb
+    else:
+        # reference survivalBiasPropagation (kernelsMod.f90:2036-2066):
+        # deposit w (1 - albedo), roulette below THRESHOLD; the chain's
+        # per-round deposits go in the same call
+        w_absorbed = torch.where(interact, weight * (1.0 - albedo), 0.0)
+        weight = weight - w_absorbed
+        ab_w = torch.where(vox_now_valid, w_absorbed, 0.0)
+        ab_idx = vox_now
+        if chaining:
+            ab_idx = torch.cat([out["absorb_flat"], vox_now[:, None]],
+                               dim=-1)
+            ab_w = torch.cat([out["absorb_w"], ab_w[:, None]], dim=-1)
+        deposit_add_(tl.absorb, ab_idx.reshape(-1), ab_w.reshape(-1))
+        ch = f32(CHANCE)
+        roulette = interact & (weight < f32(THRESHOLD))
+        survive = roulette & (u[:, _U_ROULETTE] < ch)
+        weight = torch.where(survive, weight / ch, weight)
+        died = roulette & ~survive
+        do_scatter = interact & ~died
 
     direction = torch.where(do_scatter[:, None], dir_scattered, direction)
     tau = torch.where(do_scatter, -torch.log(u[:, _U_TAU]), tau)
     steps = steps + do_scatter.to(torch.int32)
     nscatt = nscatt + torch.sum(do_scatter.to(dtype))
-    n_interactions = torch.sum(interact, dtype=torch.int32) + out["n_inter"]
+    n_interactions = torch.sum(interact, dtype=torch.int32)
+    if chaining:
+        n_interactions = n_interactions + out["n_inter"]
 
-    mom_pos, mom_pos2 = out["mom_pos"], out["mom_pos2"]
+    if cfg.history_len > 0:
+        # the interaction position and scatter order into the ring
+        # (reference pushes per propagation step, kernelsMod.f90:1959)
+        lanes = torch.arange(B, device=dev)
+        slot = torch.remainder(hist_n, cfg.history_len).long()
+        entry = torch.cat([pos, steps[:, None].to(dtype)], dim=-1)
+        history[lanes, slot] = torch.where(interact[:, None], entry,
+                                           history[lanes, slot])
+        hist_n = torch.where(interact, hist_n + 1, hist_n)
+
+    if cfg.record_phasor:
+        # exp(i k (phase + path)) at interaction sites, k = 2 pi / lambda
+        # (reference packet%fact, photon.f90:35-36): signed rows
+        # a true division: a Python number over a tensor is a reciprocal
+        # times the number in torch, one rounding more than the reference
+        k = torch.tensor(TWOPI, dtype=dtype, device=dev) / torch.clamp(
+            wavelength, min=1e-12)
+        arg = k * phase
+        w_ph = torch.where(interact, weight, 0.0)
+        deposit_add_(tl.phasor_re, vox_now, w_ph * torch.cos(arg),
+                     signed=True)
+        deposit_add_(tl.phasor_im, vox_now, w_ph * torch.sin(arg),
+                     signed=True)
+
     if cfg.record_moments:
+        # scatter-order moments (kernelsMod.f90:2149-2161); chained
+        # scatters were recorded in the chain
         order = torch.where(do_scatter, steps, 0)
         oh = (order[:, None] - 1 == torch.arange(4, device=dev)).to(dtype)
         mom_pos = mom_pos + oh.T @ pos
         mom_pos2 = mom_pos2 + oh.T @ (pos * pos)
 
-    died = do_absorb
     if cfg.max_scatter_order > 0:
         died = died | (steps > cfg.max_scatter_order)
     alive = alive & ~died
@@ -973,11 +1271,15 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
         st, pos=pos, dir=direction, weight=weight, layer=layer, tau=tau,
         seg_rem=seg_rem, seg_interact=seg_interact, seg_srf=seg_srf,
         seg_cont=seg_cont, seg_prim=seg_prim, alive=alive, bounces=bounces,
-        steps=steps, phase=phase, wavelength=wavelength)
+        steps=steps, phase=phase, wavelength=wavelength, history=history,
+        hist_n=hist_n)
     new_tallies = replace(tl, nscatt=nscatt, mom_pos=mom_pos,
-                          mom_pos2=mom_pos2, perf=perf)
+                          mom_pos2=mom_pos2, perf=perf,
+                          track_count=track_count,
+                          track_dropped=track_dropped)
     return SimCarry(state=new_state, tallies=new_tallies, bank=bank,
-                    launched=launched, step=carry.step + 1)
+                    launched=launched, step=carry.step + 1,
+                    qmc_shifts=qmc_shifts)
 
 
 def _run_steps(scene, source, grid, generator, carry, cfg, n_steps,
@@ -1002,8 +1304,7 @@ def _compact_lanes(carry: SimCarry, new_B: int) -> SimCarry:
     st = carry.state
     new_state = LaneState(**{f.name: getattr(st, f.name)[order]
                              for f in dataclasses.fields(LaneState)})
-    return SimCarry(state=new_state, tallies=carry.tallies, bank=carry.bank,
-                    launched=carry.launched, step=carry.step)
+    return replace(carry, state=new_state)
 
 
 def shrink_ladder(n_lanes: int, min_lanes: int) -> list:
@@ -1022,7 +1323,7 @@ def warmup(scene: Scene, source: Source, grid: CartGrid,
     every wavefront width of the shrink ladder, so a timed run pays no
     build and no first-use allocation.  Leaves no tally behind and the
     caller's bank as it was."""
-    cfg.check_ported(scene)
+    cfg.check_ported()
     if scene.device.type == "cuda":
         from .. import _build
 
@@ -1049,11 +1350,15 @@ def simulate(scene: Scene, source: Source, grid: CartGrid,
     ``progress(launched, nphotons, step, carry)`` is called per chunk.
     Once the photon budget is spent and at most 1/8 of the lanes live,
     the survivors are compacted into a wavefront 1/8 as wide
-    (``tail_shrink``)."""
-    cfg.check_ported(scene)
+    (``tail_shrink``).  With path history the kept tracks are drained to
+    the host every chunk, so the device's ``max_tracks`` slots hold one
+    chunk's worth and the run's count is unbounded; the returned
+    ``tallies.tracks`` holds them all, ``track_count`` their number."""
+    cfg.check_ported()
     n_target = int(cfg.nphotons if nphotons is None else nphotons)
     cur_cfg = cfg
     carry = init_carry(grid, cfg, bank=bank)
+    drained = []
     step = 0
     while True:
         # at tail widths use longer chunks: host round trips dominate there
@@ -1064,6 +1369,11 @@ def simulate(scene: Scene, source: Source, grid: CartGrid,
                            cur_chunk, n_target)
         launched = int(carry.launched)
         step = int(carry.step)
+        tc = int(carry.tallies.track_count) if cfg.max_tracks > 0 else 0
+        if tc > 0:
+            drained.append(carry.tallies.tracks[:tc].cpu().clone())
+            carry.tallies.track_count = torch.zeros_like(
+                carry.tallies.track_count)
         if progress is not None:
             progress(launched, n_target, step, carry)
         if step >= cfg.max_steps:
@@ -1077,4 +1387,11 @@ def simulate(scene: Scene, source: Source, grid: CartGrid,
             new_B = max(min_lanes, cur_cfg.n_lanes // 8)
             carry = _compact_lanes(carry, new_B)
             cur_cfg = replace(cur_cfg, n_lanes=new_B)
-    return carry.tallies, carry.bank, carry.launched, carry.step
+    tallies = carry.tallies
+    if drained:
+        full = torch.cat(drained).to(grid.device)
+        tallies = replace(tallies, tracks=full,
+                          track_count=torch.tensor(full.shape[0],
+                                                   dtype=torch.int32,
+                                                   device=grid.device))
+    return tallies, carry.bank, carry.launched, carry.step

@@ -240,6 +240,62 @@ def test_cuda_kernel_designs_match_plain(cuda_device, case, dtype, offset):
         assert abs(float(got[4321]) - ref) <= 1e-3 * ref
 
 
+def _signed_case(case, rng):
+    """Rows of both signs for each warp-combining tier: one cell whose
+    rows come in +x / -x pairs (one group, a shuffle sum of ~0), runs of
+    equal indices with mixed signs, and scattered rows with zeros, NaN and
+    +-inf."""
+    n_cells, n = 64 ** 3, 100_003
+    if case == "cancelling":
+        idx = np.full(n, 777)
+        x = rng.uniform(0.0, 1.0, n // 2 + 1)
+        val = np.stack([x, -x], axis=-1).reshape(-1)[:n]
+    elif case == "runs":
+        idx = np.repeat(rng.integers(0, n_cells, n),
+                        rng.integers(1, 10, n))[:n]
+        val = rng.uniform(-1.0, 1.0, n)
+    else:
+        idx = rng.integers(0, n_cells, n)
+        val = rng.uniform(-1.0, 1.0, n)
+        val[rng.uniform(size=n) < 0.1] = 0.0
+        val[::89] = np.nan
+        val[3::89] = np.inf
+        val[5::89] = -np.inf
+    return (n_cells, torch.as_tensor(idx.astype(np.int32)),
+            torch.as_tensor(val.astype(np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("case", ["cancelling", "runs", "scattered"])
+def test_cuda_signed_kernel_matches_plain(cuda_device, case, offset):
+    """The signed instantiation keeps every finite non-zero row, as its
+    plain twin does: atol 1e-4 of the largest cell of |val| (the float
+    atomics add in a run-dependent order, and a cell's terms may cancel);
+    the unsigned one still drops the negative rows."""
+    n_cells, idx, val = _signed_case(case, np.random.default_rng(43))
+    idx, val = idx[offset:], val[offset:]
+    keep = torch.isfinite(val) & (val != 0.0)
+    scale = float(tdep.deposit_add_plain(torch.zeros(n_cells), idx,
+                                         torch.where(keep, val.abs(), 0.0)
+                                         ).max())
+    for signed in (True, False):
+        want = tdep.deposit_add_plain(torch.zeros(n_cells), idx, val,
+                                      signed=signed)
+        before = tdep.deposit_kernel_launches
+        got = tdep.deposit_add_(torch.zeros(n_cells, device=cuda_device),
+                                idx.to(cuda_device), val.to(cuda_device),
+                                signed=signed).cpu()
+        assert tdep.deposit_kernel_launches == before + 1
+        # +inf rows are kept without ``signed``: their cells are inf in both
+        torch.testing.assert_close(got, want, rtol=0.0, atol=1e-4 * scale)
+        if not signed:
+            assert not bool((got < 0).any())
+        elif case != "cancelling":
+            assert bool((got < 0).any())
+    assert tdep.out_of_range_count(cuda_device) == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("offset", [0, 1])
 def test_cuda_kernel_counts_each_bad_row(cuda_device, offset):

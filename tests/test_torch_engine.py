@@ -127,4 +127,4 @@ def test_warmup():
     assert float(bank.circle.data.sum()) == 0.0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         te.warmup(scene, src, grid, None,
-                  dataclasses.replace(cfg, survival_bias=True), bank=bank)
+                  dataclasses.replace(cfg, escape_shape=(2, 1)), bank=bank)

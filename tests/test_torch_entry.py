@@ -96,10 +96,13 @@ iseed = 3
 
 @pytest.mark.parametrize("fields,err", [
     (dict(geom="sphere", num=2), ConfigError),
-    (dict(src="dslit"), NotImplementedError),
-    (dict(extra_source='spectrum_type = "1D"'), NotImplementedError),
+    # the reference's error paths for the coherent and image sources and
+    # the spectra (rsmcrt_tpu/config.py:111-143, sources.py:375-379)
+    (dict(src="dslit"), ConfigError),
+    (dict(extra_source='spectrum_type = "1D"'), ConfigError),
     (dict(extra_source='spectrum_type = "bogus"'), ConfigError),
-    (dict(src="slm"), NotImplementedError),
+    (dict(src="slm", extra_source='rotation = [0.0, 0.0, 1.0]\n'
+          'direction = "-z"'), TypeError),
     # the reference's error paths for the ported sources and scenes
     # (tests/test_parse.py, rsmcrt_tpu/config.py:221-340)
     (dict(geom="egg", num=2), ConfigError),

@@ -112,10 +112,11 @@ def test_surface_normal(name, params, how):
 
 
 def test_unported_prims_raise():
-    """Every prim kind is ported; spectral optical properties are not."""
+    """Every prim kind and both kinds of optical properties are ported;
+    anything else as a prim's properties, or an unknown kind, raises."""
     from rsmcrt_tpu_torch.optics.piecewise import Constant
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="OptProps"):
         tS.build_scene([tS.torus(0.5, 0.1, Constant(torch.tensor(1.0)), 1)])
     with pytest.raises(ValueError, match="unknown spec kind"):
         tS.eval_spec(tS.PrimSpec("hexagon", {}), {}, torch.zeros(1, 3))

@@ -27,6 +27,7 @@ def test_port_never_imports_jax():
             "or m.startswith('jax.') or m == 'rsmcrt_tpu' "
             "or m.startswith('rsmcrt_tpu.')]\n"
             "assert not bad, bad\n"
+            "print(' '.join(mods))\n"
             "print('clean', len(mods))")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env=_env(), capture_output=True, text=True,
@@ -37,14 +38,16 @@ def test_port_never_imports_jax():
              for p in (ROOT / "rsmcrt_tpu_torch").rglob("*.py")}
     # every source file of the package was imported (not only __init__s)
     assert int(res.stdout.split()[-1]) == len(names) - 1, names
+    # the plain walk's modules among them
+    for mod in ("maths.qmc", "io.history", "optics.piecewise",
+                "optics.properties", "transport.engine"):
+        assert f"rsmcrt_tpu_torch.{mod}" in res.stdout.split(), mod
 
 
 def test_non_analytic_scene_without_march_budget_raises():
     """The reference falls back to the plain walk for a scene with
-    non-analytic prims and chain_march_iters = 0; the port has no plain
-    walk yet and says so instead of running another program."""
-    import pytest
-
+    non-analytic prims and chain_march_iters = 0 (engine.py:1353-1355);
+    the port selects it there and nowhere else, and no longer raises."""
     from rsmcrt_tpu_torch.optics.properties import mono
     from rsmcrt_tpu_torch.sdfs import scene as S
     from rsmcrt_tpu_torch.transport.engine import TransportConfig
@@ -56,10 +59,10 @@ def test_non_analytic_scene_without_march_budget_raises():
                               S.box([2.0, 2.0, 2.0], opt, 2)])
     cfg = TransportConfig(nphotons=100, chain_scatter=True,
                           chain_march_iters=0)
-    with pytest.raises(NotImplementedError, match="plain walk"):
-        cfg.check_ported(marched)
-    cfg.check_ported(analytic)
-    TransportConfig(nphotons=100, chain_scatter=True).check_ported(marched)
+    cfg.check_ported()
+    assert not cfg.chains(marched)
+    assert cfg.chains(analytic)
+    assert TransportConfig(nphotons=100, chain_scatter=True).chains(marched)
 
 
 def test_chip_smoke_fails_without_a_card():
