@@ -11,9 +11,12 @@ Phases (each raises on failure; the exit code is non-zero on any):
    on the card, on three synthetic mixes (32768 lanes x 64 rounds =
    2,097,152 deposits into a 200^3 tally) and on the rows of the four
    ``deposit_add_`` calls of one megastep of res/sphere.toml, captured
-   after 8 warm megasteps; each timed with CUDA events beside its plain
-   twin and one ``index_add_``, with the rows' live share, rows per cell
-   and mean group of equal indices in 32 consecutive rows.
+   after 8 warm megasteps, and on the rows of the two ``escape_tot``
+   flushes (the analysis phase's and the chain's) of one megastep of
+   phase 21's escape box (into its 4,096-cell table) and of
+   res/escape_test.toml (16 cells); each timed with CUDA events beside
+   its plain twin and one ``index_add_``, with the rows' live share,
+   rows per cell and mean group of equal indices in 32 consecutive rows.
 4. physics gate: res/scat_test.toml cut to 20,000 photons on the 200^3
    grid through ``kernels.run_MCRT``; nscatt/photon must be 57.5 +- 1.0
    (phase 17 holds the same scene with a 1D spectrum to 57.5 +- 0.5 at
@@ -88,6 +91,27 @@ Phases (each raises on failure; the exit code is non-zero on any):
     100,000 photons on 16,384 lanes, the reference's Rd / Td gate on
     both); the CPU halves run in a second child process started beside
     phase 13's.
+
+21. escape functions: res/escape_test.toml at its own size (360rotational,
+    4 x 4 x 4, 16 voxels x 2,000 photons) through ``cli --kernel escape``
+    (the nrrd volumes written, the efficiencies finite in [0, 1], the
+    mapped grid -1 outside the symmetry cylinder), then the full-width
+    escape run: tests/test_escape_modes.py's near-vacuum box at a 16^3
+    ``none`` grid of 256 photons a voxel (1,048,576 photons on 32,768
+    lanes), every voxel within 5 sem + 0.01 of the disk oracle computed
+    here and the mean deviation under 0.01; photons/s, megasteps, peak
+    memory.
+22. the inverse kernel: ``detector_gradients("res/inverse_test.toml")``
+    at its 30,000 photons, on the plain and on the chained walk, against
+    common-random-number differences, with megasteps and ms a megastep,
+    ``inverse_gradient_descent`` on res/inverse_test4.toml (6 steps of
+    10,000 photons; the error improves), ``inverse_random_search`` and
+    ``cli --kernel inverse`` on a 2,048-photon copy; seconds a step.
+    Each run of phases 21-22 must launch the deposit kernel (the escape
+    flushes, the absorption deposits) and make no plain call.
+
+Phase 17's wavelengths are those the run launched: the engine's source
+sampler is wrapped for that run (``_launched_wavelengths``).
 
 Phases 4, 6, 10, 12 and 14 were cut (from 100,000 photons, 500,000,
 2,000,000, 30 megasteps and 8 / 40 megasteps) to make room for phases
@@ -228,59 +252,70 @@ def _time_ms(fn, reps=20):
     return a.elapsed_time(b) / reps
 
 
-def capture_megastep(toml, dev, warm=8, n_lanes=N_LANES):
+def capture_megastep(toml, dev, warm=8, n_lanes=N_LANES, kernel="default"):
     """The rows every ``deposit_add_`` call of one megastep of a forward
-    fluence run hands the kernel.  Builds the run as ``kernels.run_MCRT``
-    does (the config's phasor and path history included), takes ``warm``
-    megasteps so the lanes are in flight, then runs one more through
-    ``engine.transport_step`` with the engine's ``deposit_add_`` wrapped
-    to clone each call's ``(flat_idx, val)``.  Returns ``(calls, before,
-    after)``: ``calls`` maps a name to ``(tally name, idx, val)`` in call
-    order (the chained walk: the launch emission, the in-chain respawn
-    emission, the fluence walk, the absorption; the plain walk with the
-    phasor: the emission, the fluence walk, the absorption and the
-    phasor's signed ``phasor_re`` and ``phasor_im``); ``before`` /
-    ``after`` are the tallies around the megastep."""
-    from rsmcrt_tpu_torch import kernels
+    fluence run (or, with ``kernel="escape"``, of the config's escape run
+    as ``escape.escape_run`` builds it) hands the kernel.  Builds the run
+    as ``kernels.run_MCRT`` does (the config's phasor and path history
+    included), takes ``warm`` megasteps so the lanes are in flight, then
+    runs one more through ``engine.transport_step`` with the engine's
+    ``deposit_add_`` wrapped to clone each call's ``(flat_idx, val)``.
+    Returns ``(calls, before, after)``: ``calls`` maps a name to ``(tally
+    name, idx, val)`` in call order (the chained walk: the launch
+    emission, the in-chain respawn emission, the fluence walk, the
+    absorption; the plain walk with the phasor: the emission, the fluence
+    walk, the absorption and the phasor's signed ``phasor_re`` and
+    ``phasor_im``; the escape run: the analysis phase's ``escape_tot``
+    flush, the chain's (``escape_tot_chain``) and the absorption);
+    ``before`` / ``after`` are the flat tallies around the megastep."""
+    from rsmcrt_tpu_torch import escape, kernels
     from rsmcrt_tpu_torch.transport import engine
 
-    parsed, scene = kernels.setup(toml, device=dev)
+    parsed, scene = kernels.setup(toml, kernel=kernel, device=dev)
     st = parsed.settings
-    cfg = engine.TransportConfig(
-        nphotons=st.nphotons, n_lanes=n_lanes, record_fluence=True,
-        record_emission=True, record_phasor=st.phasor,
-        roulette_bounces=st.roulette_bounces,
-        roulette_chance=st.roulette_chance,
-        **kernels.fast_path_defaults(device=dev))
+    source = parsed.source
+    if kernel == "escape":
+        source, cfg = escape.escape_run(parsed, scene, n_lanes)[:2]
+    else:
+        cfg = engine.TransportConfig(
+            nphotons=st.nphotons, n_lanes=n_lanes, record_fluence=True,
+            record_emission=True, record_phasor=st.phasor,
+            roulette_bounces=st.roulette_bounces,
+            roulette_chance=st.roulette_chance,
+            **kernels.fast_path_defaults(device=dev))
     gen = torch.Generator(device=dev)
     gen.manual_seed(st.iseed)
     carry = engine.init_carry(st.grid, cfg, bank=parsed.detectors)
     for _ in range(warm):
-        carry = engine.transport_step(carry, scene, parsed.source, st.grid,
+        carry = engine.transport_step(carry, scene, source, st.grid,
                                       gen, cfg)
-    tallies = ("jmean", "absorb", "emission") + (
-        ("phasor_re", "phasor_im") if st.phasor else ())
-    by_id = {id(getattr(carry.tallies, t)): t for t in tallies}
-    before = {t: getattr(carry.tallies, t).clone() for t in tallies}
+    tallies = (("escape_tot", "absorb") if kernel == "escape" else
+               ("jmean", "absorb", "emission") + (
+                   ("phasor_re", "phasor_im") if st.phasor else ()))
+    flat = {t: getattr(carry.tallies, t).view(-1) for t in tallies}
+    by_ptr = {v.data_ptr(): t for t, v in flat.items()}
+    before = {t: v.clone() for t, v in flat.items()}
+    second = {"emission": "emission_respawn",
+              "escape_tot": "escape_tot_chain"}
     calls = {}
     real = engine.deposit_add_
 
     def recording(tally_flat, flat_idx, val, dot_dtype=torch.float32,
                   signed=False):
-        t = by_id[id(tally_flat)]
+        t = by_ptr[tally_flat.data_ptr()]
         if signed != t.startswith("phasor"):
             raise AssertionError(f"{t} deposited with signed={signed}")
-        calls[t + "_respawn" if t in calls else t] = (
+        calls[second[t] if t in calls else t] = (
             t, flat_idx.clone(), val.clone())
         return real(tally_flat, flat_idx, val, dot_dtype, signed)
 
     engine.deposit_add_ = recording
     try:
-        carry = engine.transport_step(carry, scene, parsed.source, st.grid,
+        carry = engine.transport_step(carry, scene, source, st.grid,
                                       gen, cfg)
     finally:
         engine.deposit_add_ = real
-    after = {t: getattr(carry.tallies, t).clone() for t in tallies}
+    after = {t: getattr(carry.tallies, t).view(-1).clone() for t in tallies}
     return calls, before, after
 
 
@@ -308,8 +343,7 @@ def phase_kernel(dev, card):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
-    n_cells = GRID ** 3
-    inputs = dict(_mixes(dev, gen))
+    inputs = {k: (i, v, GRID ** 3) for k, (i, v) in _mixes(dev, gen).items()}
     calls, _, _ = capture_megastep(SPHERE, dev)
     shapes = {k: tuple(i.shape) for k, (_, i, _) in calls.items()}
     log(f"[kernel] one megastep of res/sphere.toml ({N_LANES} lanes, "
@@ -317,9 +351,30 @@ def phase_kernel(dev, card):
     if list(calls) != ["emission", "emission_respawn", "jmean", "absorb"]:
         raise AssertionError(f"captured calls {list(calls)}")
     for k, (_, idx, val) in calls.items():
-        inputs[f"capture_{k}"] = (idx, val)
+        inputs[f"capture_{k}"] = (idx, val, GRID ** 3)
+    # the escape runs' two escape_tot flushes: [B, ndect] rows keyed by
+    # source voxel into the M * ndect table, runs of one sid, most rows 0.
+    # In phase 21's near-vacuum box the hits come in the analysis phase;
+    # in res/escape_test.toml's scattering sphere most come in the chain
+    with tempfile.TemporaryDirectory() as tmp:
+        box = write_escape_box(Path(tmp) / "escape_box.toml")
+        for run, toml, warm, n_lanes in (("escape", box, 8, N_LANES),
+                                         ("escape_test", ESCAPE, 2, None)):
+            calls, before, _ = capture_megastep(toml, dev, warm, n_lanes,
+                                                kernel="escape")
+            shapes = {k: tuple(i.shape) for k, (_, i, _) in calls.items()}
+            cells = before["escape_tot"].numel()
+            log(f"[kernel] one megastep of the {run} run ({cells} "
+                f"escape_tot cells) calls deposit_add_ {len(calls)} "
+                f"times: {shapes}")
+            if list(calls) != ["escape_tot", "escape_tot_chain", "absorb"]:
+                raise AssertionError(f"{run} captured calls {list(calls)}")
+            for k in ("escape_tot", "escape_tot_chain"):
+                _, idx, val = calls[k]
+                name = f"capture_{run}{k.removeprefix('escape')}"
+                inputs[name] = (idx, val, cells)
     rows = {}
-    for name, (idx, val) in inputs.items():
+    for name, (idx, val, n_cells) in inputs.items():
         got = dep.deposit_add_(torch.zeros(n_cells, device=dev), idx, val)
         want = dep.deposit_add_plain(torch.zeros(n_cells, device=dev), idx,
                                      val)
@@ -359,7 +414,8 @@ def phase_kernel(dev, card):
         bound = _bound_ms(8 * idx.numel() + 8 * touched)
         row = dict(err=err, ms=min(t_k1, t_k2), plain_ms=min(t_p1, t_p2),
                    library_ms=t_lib, bound_ms=bound)
-        line = (f"[kernel] {name}: {idx.numel()} rows into {GRID}^3, live "
+        line = (f"[kernel] {name}: {idx.numel()} rows into {n_cells} "
+                f"cells, live "
                 f"share {n_live / idx.numel():.4f}, live rows per distinct "
                 f"cell {n_live / max(touched, 1):.3f}, mean match group "
                 f"{match_group(idx, val):.3f}; max_abs_err {err:.3e} (max "
@@ -1125,13 +1181,63 @@ def _ks_distance(samples, x, cdf):
     return max(float(np.max(i / n - f)), float(np.max(f - (i - 1) / n)))
 
 
+@contextlib.contextmanager
+def _launched_wavelengths(rows):
+    """Collect into ``rows`` the wavelengths of the photons a run launches:
+    the engine's source sampler and chained walk are wrapped, and of each
+    megastep's samples only the rows that became photons are kept -- the
+    lanes the analysis phase respawned (``dead & rank < budget``, as the
+    engine decides) and the in-chain candidates consumed (the chain's
+    ``cand_k``, the reference's ``consumed`` mask, engine.py:1652-1658)."""
+    from rsmcrt_tpu_torch.transport import engine
+
+    real = (engine.transport_step, engine.sample_source, engine._chained_dda)
+    step_rows = {}
+
+    def step(carry, scene, source, grid, gen, cfg, nphotons=None,
+             draws=None):
+        n = cfg.nphotons if nphotons is None else nphotons
+        dead = ~carry.state.alive
+        rank = torch.cumsum(dead.to(torch.int32), dim=0) - 1
+        step_rows.update(respawn=dead & (rank < n - carry.launched),
+                         samples=[], cand_k=None)
+        out = real[0](carry, scene, source, grid, gen, cfg, nphotons, draws)
+        samples = step_rows["samples"]
+        rows.append(samples[0][step_rows["respawn"]])
+        if step_rows["cand_k"] is not None:
+            C = cfg.chain_respawns
+            consumed = step_rows["cand_k"][None, :] > torch.arange(
+                C, device=dead.device)[:, None]  # [C, B]
+            rows.append(samples[1][consumed.reshape(-1)])
+        return out
+
+    def sample(*a, **k):
+        res = real[1](*a, **k)
+        step_rows["samples"].append(res[3])
+        return res
+
+    def chain(*a, **k):
+        res = real[2](*a, **k)
+        if k.get("respawn") is not None:
+            step_rows["cand_k"] = res["cand_k"]
+        return res
+
+    engine.transport_step, engine.sample_source, engine._chained_dda = (
+        step, sample, chain)
+    try:
+        yield rows
+    finally:
+        engine.transport_step, engine.sample_source, engine._chained_dda = \
+            real
+
+
 def phase_spectra(dev, card):
     """res/test_spectra_1D.toml at its 100,000 photons on 200^3 (scat_test:
-    nscatt/photon 57.5 +- 0.5), its launched wavelengths against
-    blood.dat's CDF (KS distance under 3/sqrt(n)); test_spectra_2D and
-    _const cut to 20,000 photons (57.5 +- 1.0)."""
+    nscatt/photon 57.5 +- 0.5), the wavelengths that run launched against
+    blood.dat's CDF (KS distance under 3/sqrt(n), their count equal to
+    the photons launched); test_spectra_2D and _const cut to 20,000
+    photons (57.5 +- 1.0)."""
     from rsmcrt_tpu_torch import kernels
-    from rsmcrt_tpu_torch.sources.sources import n_source_uniforms, sample
     from rsmcrt_tpu_torch.transport import deposit as dep
 
     launches = 0
@@ -1139,7 +1245,8 @@ def phase_spectra(dev, card):
                         ("const", 20_000, 1.0)):
         parsed, scene = kernels.setup(SPECTRA[key], device=dev)
         dep.reset_counts()
-        res = kernels.run_MCRT(parsed, scene, nphotons=n)
+        with _launched_wavelengths([]) as rows:
+            res = kernels.run_MCRT(parsed, scene, nphotons=n)
         launches += _main_path(f"test_spectra_{key}")
         ns = res.nscatt_per_photon
         log(f"[spectra] res/test_spectra_{key}.toml: {res.launched} photons "
@@ -1149,18 +1256,18 @@ def phase_spectra(dev, card):
         if abs(ns - 57.5) >= tol:
             raise AssertionError(f"test_spectra_{key}: nscatt {ns}")
         if key == "1D":
-            src, grid = parsed.source, parsed.settings.grid
             m = res.launched
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(parsed.settings.iseed)
-            u = torch.rand((m, n_source_uniforms(src)), generator=gen,
-                           device=dev).clamp_(min=1e-12)
-            wl = sample(src, grid, u)[3].double().cpu().numpy()
+            wl = torch.cat(rows).double().cpu().numpy()
+            if wl.size != m:
+                raise AssertionError(f"recorded {wl.size} launched "
+                                     f"wavelengths for {m} photons")
             tab = np.loadtxt(ROOT / "res" / "blood.dat", delimiter=",")
             seg = 0.5 * (tab[1:, 1] + tab[:-1, 1]) * np.diff(tab[:, 0])
             cdf = np.concatenate([[0.0], np.cumsum(seg)]) / seg.sum()
             ks = _ks_distance(wl, tab[:, 0], cdf)
-            log(f"[spectra] {m} launched wavelengths: mean {wl.mean():.3f} "
+            log(f"[spectra] the run's {m} launched wavelengths (analysis "
+                f"respawns and consumed in-chain candidates): mean "
+                f"{wl.mean():.3f} "
                 f"nm, KS distance from blood.dat's CDF {ks:.5f} (gate "
                 f"{3.0 / np.sqrt(m):.5f})")
             if ks >= 3.0 / np.sqrt(m):
@@ -1372,6 +1479,279 @@ def phase_plain_card_vs_cpu(dev, tmp, card, cpu_run):
             raise AssertionError(f"{name}: card and CPU disagree")
 
 
+ESCAPE = ROOT / "res" / "escape_test.toml"
+INVERSE = ROOT / "res" / "inverse_test.toml"
+INVERSE4 = ROOT / "res" / "inverse_test4.toml"
+#: tests/test_escape_modes.py's near-vacuum box with one circle detector
+#: (the efficiency from a voxel is the detector disk's solid-angle
+#: fraction), at a 16^3 ``none`` symmetry grid of 256 photons a voxel
+BOX_DECT = (np.array([0.0, 0.0, -0.9]), np.array([0.0, 0.0, -1.0]), 0.6)
+BOX_TOML = """[source]
+name = "point"
+nphotons = 10000
+position = [0.0, 0.0, 0.0]
+[grid]
+nxg = 16
+nyg = 16
+nzg = 16
+xmax = 1.0
+ymax = 1.0
+zmax = 1.0
+[geometry]
+geom_name = "box"
+BoxDimensions = [2.2, 2.2, 2.2]
+boundingBox = [2.4, 2.4, 2.4]
+position = [0.0, 0.0, 0.0]
+mus = [0.0]
+mua = [1e-6]
+hgg = [0.0]
+n = [1.0]
+[[detectors]]
+type = "circle"
+ID = "below"
+position = [0.0, 0.0, -0.9]
+direction = [0.0, 0.0, -1.0]
+radius = 0.6
+nbins = 4
+[output]
+fluence = "fluence.nrrd"
+overwrite = true
+[simulation]
+iseed = 77
+[symmetry]
+symmetryType = "none"
+escapenphotons = 256
+GridSize = [16, 16, 16]
+maxValues = [0.8, 0.8, 0.8]
+"""
+
+
+def write_escape_box(path) -> Path:
+    """Phase 21's full-width escape config (also the escape cell of
+    ``profile_megastep.py --escape``)."""
+    path = Path(path)
+    path.write_text(BOX_TOML)
+    return path
+
+
+def disk_oracle(points, dev, n_dirs=200_000):
+    """The fraction of isotropic rays from each point that cross the
+    one-sided detector disk of ``BOX_DECT`` (Fibonacci-sphere directions;
+    tests/test_escape_modes.py's oracle, on the card)."""
+    pos, normal, radius = BOX_DECT
+    i = torch.arange(n_dirs, device=dev, dtype=torch.float64) + 0.5
+    cost = 1.0 - 2.0 * i / n_dirs
+    sint = torch.sqrt(torch.clamp(1.0 - cost * cost, min=0.0))
+    phi = np.pi * (1.0 + np.sqrt(5.0)) * i
+    d = torch.stack([sint * torch.cos(phi), sint * torch.sin(phi), cost], -1)
+    front = d @ torch.as_tensor(normal, device=dev) > 1e-6
+    pts = torch.as_tensor(np.asarray(points, np.float64), device=dev)
+    out = []
+    for chunk in pts.split(256):
+        t = (pos[2] - chunk[:, 2:3]) / d[None, :, 2]
+        ok = front[None] & (d[None, :, 2] != 0.0) & (t > 0.0)
+        hx = chunk[:, 0:1] + t * d[None, :, 0]
+        hy = chunk[:, 1:2] + t * d[None, :, 1]
+        out.append((ok & (hx * hx + hy * hy < radius * radius)).double()
+                   .mean(dim=1))
+    return torch.cat(out).cpu().numpy()
+
+
+def phase_escape(dev, tmp, card):
+    """res/escape_test.toml at its own size through ``cli --kernel
+    escape`` (the nrrd volumes written, every efficiency finite in [0, 1],
+    the mapped grid -1 outside the symmetry cylinder), then the full-width
+    escape run: the near-vacuum box at a 16^3 ``none`` grid, 256 photons a
+    voxel (1,048,576 photons on 32,768 lanes), every voxel within 5 sem +
+    0.01 of the disk oracle and the mean deviation under 0.01.  Both runs'
+    ``escape_tot`` flushes go through the deposit kernel."""
+    from rsmcrt_tpu_torch import cli, escape, kernels
+    from rsmcrt_tpu_torch.io.writer import read_nrrd
+    from rsmcrt_tpu_torch.transport import deposit as dep
+
+    torch.cuda.synchronize()
+    dep.reset_counts()
+    t0 = time.perf_counter()
+    with open(tmp / "escape_cli.log", "w") as fh, \
+            contextlib.redirect_stdout(fh):
+        cli.main(["--kernel", "escape", "--data-dir", str(tmp / "esc"),
+                  str(ESCAPE)])
+    wall = time.perf_counter() - t0
+    launches = _main_path("escape_test")
+    vols = {p.name: read_nrrd(p)[0]
+            for p in sorted((tmp / "esc" / "escape").glob("*.nrrd"))}
+    if sorted(vols) != ["dectID_above__escape1.nrrd",
+                        "dectID_above__escapeSym1.nrrd"]:
+        raise AssertionError(f"escape volumes: {sorted(vols)}")
+    sym = vols["dectID_above__escapeSym1.nrrd"]
+    esc = vols["dectID_above__escape1.nrrd"]
+    g = 32
+    c = (np.arange(g) + 0.5) / g * 2.0 - 1.0
+    xx, yy = np.meshgrid(c, c, indexing="ij")
+    outside = np.broadcast_to((np.sqrt(xx**2 + yy**2) >= 1.0)[..., None],
+                              esc.shape)
+    ok = (np.all(np.isfinite(sym)) and sym.min() >= 0.0 and sym.max() <= 1.0
+          and np.all(esc[outside] == -1.0) and np.all(np.isfinite(esc)))
+    log(f"[escape] res/escape_test.toml through cli --kernel escape "
+        f"(360rotational, 4x4x4, 16 voxels x 2,000 photons): {wall:.2f} s; "
+        f"symmetry efficiencies {sym.min():.4f}..{sym.max():.4f}, mapped "
+        f"{np.count_nonzero(esc[~outside] >= 0.0)} voxels, -1 on all "
+        f"{int(outside.sum())} outside the cylinder; deposit kernel "
+        f"launches {launches}, plain calls {dep.deposit_plain_calls} "
+        f"[{card}]")
+    if not ok:
+        raise AssertionError("escape_test: efficiencies or map out of range")
+
+    box = write_escape_box(tmp / "escape_box.toml")
+    parsed, scene = kernels.setup(box, kernel="escape", device=dev)
+    steps = [0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dep.reset_counts()
+    t0 = time.perf_counter()
+    sym, *_ = escape.compute_escape_symmetry(
+        parsed, scene,
+        progress=lambda l, n, st, carry: steps.__setitem__(0, st))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    box_launches = _main_path("escape box")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    cg = parsed.settings.sym_grid_cart
+    mm, nn, oo = (a.ravel() for a in np.meshgrid(
+        *(np.arange(n) for n in cg.shape), indexing="ij"))
+    eff = sym[0, mm, nn, oo].astype(np.float64)
+    oracle = disk_oracle(escape._cart_centres(cg, mm, nn, oo), dev)
+    sem = np.sqrt(np.maximum(oracle * (1 - oracle), 0.04) / 256)
+    worst = float(np.max(np.abs(eff - oracle) / (5.0 * sem + 0.01)))
+    mean_dev = float((eff - oracle).mean())
+    n = mm.size * 256
+    log(f"[escape] full width: near-vacuum box, 16^3 none grid, {mm.size} "
+        f"voxels x 256 = {n} photons, {kernels.default_lanes(n, dev)} "
+        f"lanes: {steps[0]} megasteps, "
+        f"{wall:.2f} s, {n / wall:.1f} photons/s, peak device memory "
+        f"{peak:.1f} MiB; worst voxel at {worst:.3f} of its 5 sem + 0.01 "
+        f"gate, mean deviation from the disk oracle {mean_dev:+.5f}; "
+        f"deposit kernel launches {box_launches} [{card}]")
+    if worst >= 1.0 or abs(mean_dev) >= 0.01:
+        raise AssertionError("escape box: efficiencies off the oracle")
+    return launches + box_launches
+
+
+def phase_inverse(dev, tmp, card):
+    """``detector_gradients("res/inverse_test.toml")`` at its 30,000
+    photons on the plain walk and on the chained walk: dT/dmua within 20%
+    of a common-random-number central difference in mua
+    (tests/test_inverse.py) on each walk; on the plain walk dT/dmus of its
+    CRN secant's sign, dT/dg positive and within 0.4-2.5x of a two-seed
+    secant (tests/test_inverse.py); megasteps and ms a megastep of each
+    walk's pMC run (the first and the mean of the others, synchronised,
+    and the time outside them: the process's first ``torch.func.jvp``,
+    in the plain walk's first megastep, imports ``torch._dynamo`` and
+    its dependencies).  ``inverse_gradient_descent`` on
+    res/inverse_test4.toml (6 steps of 10,000 photons): the error
+    improves from step 0 to the best step; ``inverse_random_search`` and
+    ``cli --kernel inverse`` on res/inverse_test.toml cut to 2,048
+    photons a step.  Every absorption deposit goes through the kernel."""
+    from rsmcrt_tpu_torch import cli, inverse
+    from rsmcrt_tpu_torch.transport import deposit as dep
+    from rsmcrt_tpu_torch.transport import engine
+
+    launches = 0
+    for chain in (False, True):
+        walk = "chained" if chain else "plain"
+        step_s = []  # each megastep's wall, synchronised
+        real = engine.transport_step
+
+        def counting(*a, **k):
+            t = time.perf_counter()
+            out = real(*a, **k)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            return out
+
+        torch.cuda.synchronize()
+        dep.reset_counts()
+        engine.transport_step = counting
+        t0 = time.perf_counter()
+        try:
+            res = inverse.detector_gradients(INVERSE, seed=3, chain=chain,
+                                             device=dev)
+            torch.cuda.synchronize()
+        finally:
+            engine.transport_step = real
+        t_grad = time.perf_counter() - t0
+        pi, sc0, cfg = res["prim_index"], res["scene"], res["cfg"]
+
+        def total(mus=5.0, mua=0.5, g=0.5, seed=3):
+            sc = inverse._set_prim_optics(sc0, pi, mus, mua, g, 1.0)
+            tot, _, n = inverse._forward(res["parsed"], sc, cfg, seed,
+                                         inverse_prim=pi + 1)
+            return float(tot[0])
+
+        fd_mua = float(np.mean([(total(mua=0.5 + h) - total(mua=0.5 - h))
+                                / (2 * h) for h in (0.02, 0.05)]))
+        pmc_mua, pmc_mus, pmc_g = (float(res[k][0]) for k in
+                                   ("dT_dmua", "dT_dmus", "dT_dg"))
+        rel = abs(pmc_mua - fd_mua) / abs(fd_mua)
+        ok = rel < 0.20 and np.sign(pmc_mua) == np.sign(fd_mua)
+        more = ""
+        if not chain:
+            fd_mus = (total(mus=5.5) - total(mus=4.5)) / 1.0
+            sec_g = float(np.mean([(total(g=0.6, seed=s) -
+                                    total(g=0.4, seed=s)) / 0.2
+                                   for s in (101, 202)]))
+            more = (f"; dT/dmus {pmc_mus:.2f} (CRN secant {fd_mus:.2f}); "
+                    f"dT/dg {pmc_g:.2f} (secant {sec_g:.2f})")
+            ok = (ok and np.sign(pmc_mus) == np.sign(fd_mus) and pmc_g > 0
+                  and sec_g > 0 and 0.4 < pmc_g / sec_g < 2.5)
+        n_launch = _main_path(f"detector_gradients ({walk} walk)")
+        launches += n_launch
+        log(f"[inverse] detector_gradients(res/inverse_test.toml), {walk} "
+            f"walk, {res['launched']} photons on {cfg.n_lanes} lanes in "
+            f"{t_grad:.2f} s: {len(step_s)} megasteps, the first "
+            f"{step_s[0]:.2f} s, the others "
+            f"{np.mean(step_s[1:]) * 1e3:.1f} ms on average, "
+            f"{t_grad - sum(step_s):.2f} s outside them; "
+            f"dT/dmua {pmc_mua:.2f} against the CRN difference {fd_mua:.2f} "
+            f"({rel:.2%}, gate 20%){more}; deposit kernel launches "
+            f"{n_launch} with the difference runs [{card}]")
+        if not ok:
+            raise AssertionError(f"inverse ({walk} walk): pMC gradients off "
+                                 f"the differences")
+
+    dep.reset_counts()
+    t0 = time.perf_counter()
+    theta, hist = inverse.inverse_gradient_descent(
+        INVERSE4, nsteps=6, nphotons=10_000, lr=0.15, seed=11,
+        verbose=False, device=dev)
+    t_gd = (time.perf_counter() - t0) / 6
+    errs = [h["error"] for h in hist]
+    gd_launches = _main_path("inverse_gradient_descent")
+    toml = tmp / "inverse_cut.toml"
+    toml.write_text(INVERSE.read_text().replace("nphotons = 30000",
+                                                "nphotons = 2048")
+                    .replace("maxNumSteps = 20", "maxNumSteps = 2"))
+    dep.reset_counts()
+    best, rhist = inverse.inverse_random_search(toml, verbose=False,
+                                                device=dev)
+    with open(tmp / "inverse_cli.log", "w") as fh, \
+            contextlib.redirect_stdout(fh):
+        cli.main(["--kernel", "inverse", "--data-dir", str(tmp / "inv"),
+                  str(toml)])
+    rows = (tmp / "inv" / "inverse_results.dat").read_text().splitlines()
+    cut_launches = _main_path("inverse search and cli")
+    log(f"[inverse] inverse_gradient_descent(res/inverse_test4.toml), 6 "
+        f"steps of 10,000 photons: {t_gd:.2f} s a step, error "
+        f"{', '.join(f'{e:.5f}' for e in errs)} (step 0 {errs[0]:.5f}, "
+        f"best {max(errs):.5f}); random search {len(rhist)} steps, best "
+        f"{best['error']:.5f}; cli --kernel inverse wrote {len(rows) - 1} "
+        f"steps; deposit kernel launches {gd_launches} and {cut_launches} "
+        f"[{card}]")
+    if not max(errs) > errs[0] or len(rhist) != 2 or len(rows) < 2:
+        raise AssertionError("inverse: no improvement")
+    return launches + gd_launches + cut_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -1406,6 +1786,8 @@ def main() -> int:
             launches += phase_survival(dev, card, analog)
             launches += phase_history(dev, tmp, card, analog)
             phase_plain_card_vs_cpu(dev, tmp, card, children[1])
+            launches += phase_escape(dev, tmp, card)
+            launches += phase_inverse(dev, tmp, card)
         finally:
             for child in children:
                 child[0].kill()

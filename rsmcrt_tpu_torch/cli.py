@@ -6,9 +6,8 @@ Usage::
     python -m rsmcrt_tpu_torch.cli --device cpu --nphotons 4000 res/sphere.toml
     python -m rsmcrt_tpu_torch.cli --survival-bias res/validation1.toml
     python -m rsmcrt_tpu_torch.cli --kernel test res/scat_test2.toml
-
-The ``escape`` and ``inverse`` kernels are still to port (ROADMAP queue 1,
-item 12) and raise ``NotImplementedError``.
+    python -m rsmcrt_tpu_torch.cli --kernel escape res/escape_test.toml
+    python -m rsmcrt_tpu_torch.cli --kernel inverse res/inverse_test.toml
 """
 
 from __future__ import annotations
@@ -26,8 +25,8 @@ def main(argv=None):
                     help="TOML parameter file")
     ap.add_argument("--kernel", default="default",
                     choices=["default", "test", "escape", "inverse"],
-                    help="simulation kernel ('default' and 'test' are "
-                         "ported)")
+                    help="simulation kernel (reference app/main.f90 "
+                         "compile flags)")
     ap.add_argument("--data-dir", default="data")
     ap.add_argument("--nphotons", type=int, default=None,
                     help="override photon count")
@@ -40,10 +39,19 @@ def main(argv=None):
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain PyTorch path)")
     args = ap.parse_args(argv)
-    if args.kernel in ("escape", "inverse"):
-        raise NotImplementedError(
-            f"the {args.kernel!r} kernel is not ported (ROADMAP queue 1, "
-            "item 12: escape functions and the inverse kernel)")
+
+    if args.kernel == "escape":
+        from . import escape
+
+        escape.escape_function(args.config, data_dir=args.data_dir,
+                               n_lanes=args.lanes, device=args.device)
+        return 0
+    if args.kernel == "inverse":
+        from . import inverse
+
+        inverse.inverse_MCRT(args.config, data_dir=args.data_dir,
+                             n_lanes=args.lanes, device=args.device)
+        return 0
 
     from . import kernels
 

@@ -2,9 +2,8 @@
 
 Parses the ``[source]``, ``[grid]``, ``[geometry]``, ``[[detectors]]``,
 ``[output]`` and ``[simulation]`` tables with the reference's defaults and
-error cases, every source kind and every spectrum type.  The escape and
-inverse kernels' tables are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+error cases, every source kind and every spectrum type, and the escape
+kernel's ``[symmetry]`` and the inverse kernel's ``[inverse]`` tables.
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ import torch
 from .detectors.detectors import (AnnulusDetectors, CameraDetectors,
                                   CircleDetectors, DetectorBank,
                                   FibreDetectors)
-from .grid import CartGrid, cart_grid
+from .grid import CartGrid, CylGrid, cart_grid, cyl_grid
 from .optics.piecewise import Constant, piecewise1d, piecewise2d
 from .sources.sources import Source, build_source
 
@@ -60,6 +59,15 @@ class Settings:
     roulette_bounces: int = 0
     roulette_chance: float = 0.1
     units: str = "cm"
+    # escape-function symmetry (reference: parse.f90:188-340)
+    symmetry_type: str = "none"
+    sym_grid_cart: Optional[CartGrid] = None
+    sym_grid_cyl: Optional[CylGrid] = None
+    sym_pos: tuple = (0.0, 0.0, 0.0)
+    sym_dir: tuple = (0.0, 0.0, 1.0)
+    sym_rot: float = 0.0
+    # inverse kernel (reference: parse.f90:342-402)
+    inverse: Optional[dict] = None
 
 
 @dataclass
@@ -479,14 +487,75 @@ def _parse_simulation(cfg: dict, settings: Settings):
     settings.roulette_chance = float(table.get("roulette_chance", 0.1))
 
 
+def _parse_symmetry(cfg: dict, settings: Settings, device):
+    """reference: parse.f90:188-340 (escape-function kernel only).
+    ``escapenphotons`` replaces ``settings.nphotons``: it is the photon
+    count of each source voxel."""
+    table = cfg.get("symmetry")
+    if table is None:
+        settings.symmetry_type = "none"
+        settings.nphotons = 100_000
+        settings.sym_grid_cart = cart_grid(10, 10, 10, 1.0, 1.0, 1.0,
+                                           device=device)
+        return
+    stype = table.get("symmetryType", "none")
+    settings.nphotons = int(table.get("escapenphotons", 100_000))
+    gs = table.get("GridSize", [10, 10, 10])
+    mv = table.get("maxValues", [1.0, 1.0, 1.0])
+    if len(gs) != 3:
+        raise ConfigError("Need a vector of size 3 for symmetry grid size.")
+    if len(mv) != 3:
+        raise ConfigError("Need a vector of size 3 for symmetry max values.")
+    pos = table.get("position", [0.0, 0.0, 0.0])
+    dirc = table.get("direction", [0.0, 0.0, 1.0])
+    rot = float(table.get("rotation", 0.0))
+    if rot < 0.0 or rot >= 360.0:
+        raise ConfigError(
+            "Must specifcy a rotation for symmetry that is between 0.0 and "
+            "360.0, inclusive of 0.0")
+    if all(v == 0.0 for v in dirc):
+        raise ConfigError("Must specify a non-zero direction for symmetry")
+    dirc = np.asarray(dirc, np.float64)
+    settings.symmetry_type = stype
+    settings.sym_pos = tuple(float(v) for v in pos)
+    settings.sym_dir = tuple(dirc / np.linalg.norm(dirc))
+    settings.sym_rot = rot
+    if stype in ("none", "prism", "flipped", "uniformSlab"):
+        settings.sym_grid_cart = cart_grid(int(gs[0]), int(gs[1]),
+                                           int(gs[2]), mv[0], mv[1], mv[2],
+                                           device=device)
+    elif stype in ("noneRotational", "360rotational"):
+        settings.sym_grid_cyl = cyl_grid(int(gs[0]), int(gs[1]), int(gs[2]),
+                                         mv[0], mv[1], mv[2])
+    else:
+        raise ConfigError("Unrecognised symmetry type")
+
+
+def _parse_inverse(cfg: dict, settings: Settings):
+    """reference: parse.f90:342-402 (inverse kernel only)."""
+    table = cfg.get("inverse")
+    if table is None:
+        raise ConfigError("Need inverse table in input param file")
+    if "layer" not in table:
+        raise ConfigError("Must specifiy a layer in inverse table")
+    settings.inverse = dict(
+        maxStepSize=float(table.get("maxStepSize", 1.0)),
+        gradStepSize=float(table.get("gradStepSize", 0.0001)),
+        accuracy=float(table.get("accuracy", 0.01)),
+        maxNumSteps=int(table.get("maxNumSteps", 1000)),
+        Findmua=bool(table.get("Findmua", False)),
+        Findmus=bool(table.get("Findmus", False)),
+        Findg=bool(table.get("Findg", False)),
+        Findn=bool(table.get("Findn", False)),
+        layer=int(table["layer"]),
+    )
+
+
 def parse_params(filename: str | Path, res_dir: str | Path | None = None,
                  kernel: str = "default", device="cpu") -> ParsedConfig:
-    """Entry point (reference: parse.f90:20-72).  Tensors are created on
-    ``device``."""
-    if kernel != "default":
-        raise NotImplementedError(
-            f"the {kernel!r} kernel is not ported (ROADMAP queue 1, "
-            "item 12: workloads)")
+    """Entry point (reference: parse.f90:20-72).  ``kernel`` selects the
+    extra table parsed: 'escape' -> symmetry, 'inverse' -> inverse.
+    Tensors are created on ``device``."""
     filename = Path(filename)
     res_dir = Path(res_dir) if res_dir is not None else filename.parent
     with open(filename, "rb") as fh:
@@ -498,6 +567,10 @@ def parse_params(filename: str | Path, res_dir: str | Path | None = None,
     detectors = _parse_detectors(cfg, settings, device)
     _parse_output(cfg, settings)
     _parse_simulation(cfg, settings)
+    if kernel == "escape":
+        _parse_symmetry(cfg, settings, device)
+    elif kernel == "inverse":
+        _parse_inverse(cfg, settings)
     return ParsedConfig(settings=settings, source=source,
                         detectors=detectors, geometry=geometry,
                         spectrum=spectrum)

@@ -103,3 +103,53 @@ def wall_distance(grid: CartGrid, pos: torch.Tensor,
                     torch.where(direction < 0.0, d_neg, 1e5))
     d = torch.clamp(d, min=0.0)
     return torch.amin(d, dim=-1)
+
+
+@dataclass
+class CylGrid:
+    """Cylindrical grid of the escape function's symmetry
+    (reference: src/grid.f90:31-43): radius ``rmax`` and half height
+    ``zmax`` (float32-rounded), counts ``(nrg, ntg, nzg)``; theta spans
+    ``2 pi`` whatever the config says (src/grid.f90:173)."""
+
+    rmax: float
+    zmax: float
+    nrg: int
+    ntg: int
+    nzg: int
+
+    def __post_init__(self):
+        self.rmax, self.zmax = f32(self.rmax), f32(self.zmax)
+        self.nrg, self.ntg, self.nzg = (
+            int(self.nrg), int(self.ntg), int(self.nzg))
+
+    @property
+    def tmax(self) -> float:
+        return f32(2.0 * np.pi)
+
+    @property
+    def shape(self):
+        return (self.nrg, self.ntg, self.nzg)
+
+
+def cyl_grid(nrg, ntg, nzg, rmax, tmax, zmax) -> CylGrid:
+    """``tmax`` is accepted as the reference accepts it and forced to
+    ``2 pi``."""
+    del tmax
+    return CylGrid(rmax, zmax, nrg, ntg, nzg)
+
+
+def get_voxel_cyl(grid: CylGrid, pos: torch.Tensor) -> torch.Tensor:
+    """0-based int32 ``(r, theta, z)`` voxel index ``[..., 3]``, -1 on any
+    axis outside (reference get_voxel_cyl, src/grid.f90:80-117)."""
+    x, y, z = pos[..., 0], pos[..., 1], pos[..., 2]
+    twopi = f32(2.0 * np.pi)
+    rad = torch.sqrt(x * x + y * y)
+    theta = torch.where(rad == 0.0, 0.0, torch.atan2(y, x))
+    theta = torch.where(theta < 0.0, theta + twopi, theta)
+    ir = torch.floor(grid.nrg * rad / grid.rmax)
+    it = torch.floor(grid.ntg * theta / grid.tmax)
+    iz = torch.floor(grid.nzg * (z + grid.zmax) / (2.0 * grid.zmax))
+    idx = torch.stack([ir, it, iz], dim=-1).to(torch.int32)
+    counts = torch.tensor(grid.shape, dtype=torch.int32, device=pos.device)
+    return torch.where((idx < 0) | (idx >= counts), -1, idx)

@@ -14,8 +14,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from .config import Settings
 from .detectors import detectors as D
-from .grid import CartGrid
+from .grid import CartGrid, CylGrid
 from .optics.piecewise import Constant, Piecewise1D, Piecewise2D
 from .sdfs.scene import (VECTOR_PARAMS, PrimSpec, Scene,
                           SceneTables)
@@ -32,6 +33,29 @@ def grid_from_numpy(g, device="cpu") -> CartGrid:
     return CartGrid(float(np.asarray(g.xmax)), float(np.asarray(g.ymax)),
                     float(np.asarray(g.zmax)), int(g.nxg), int(g.nyg),
                     int(g.nzg), device=device)
+
+
+def cyl_grid_from_numpy(g) -> CylGrid:
+    return CylGrid(float(np.asarray(g.rmax)), float(np.asarray(g.zmax)),
+                   int(g.nrg), int(g.ntg), int(g.nzg))
+
+
+def settings_from_numpy(st, device="cpu") -> Settings:
+    """This package's ``Settings`` for a reference ``Settings``: every
+    field of this package's, its grids (the fluence grid and an escape
+    function's cartesian or cylindrical symmetry grid) rebuilt, and an
+    inverse table copied."""
+    out = Settings()
+    for f in dataclasses.fields(Settings):
+        v = getattr(st, f.name)
+        if f.name in ("grid", "sym_grid_cart") and v is not None:
+            v = grid_from_numpy(v, device)
+        elif f.name == "sym_grid_cyl" and v is not None:
+            v = cyl_grid_from_numpy(v)
+        elif f.name == "inverse" and v is not None:
+            v = dict(v)
+        setattr(out, f.name, v)
+    return out
 
 
 def _spec_from_numpy(sp, device, disp_funcs) -> PrimSpec:

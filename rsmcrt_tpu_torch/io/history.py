@@ -6,6 +6,15 @@ The engine keeps each lane's recent events in a ring and copies the rings
 of lanes whose segment hit a detector into ``tallies.tracks [n, H, 4]``
 (x, y, z, scatter order); these writers serialise them, byte for byte as
 the JAX package's writers do.
+
+Track counts differ from the JAX package's on one config, by design.
+Both keep at most ``max_tracks`` (4,096 for ``trackHistory``) detected
+paths a chunk of megasteps and count the rest as overflowed
+(``tallies.track_dropped[1]``); ``engine.simulate`` drains the slots to
+the host after every chunk.  This package's chunk is 16 megasteps, the
+JAX package's 512, so here more paths are kept in ``photPos.obj`` and
+fewer counted as overflowed.  Kept plus overflowed -- the detected
+photons -- is the same statistic in both.
 """
 
 from __future__ import annotations

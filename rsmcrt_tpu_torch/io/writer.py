@@ -1,7 +1,7 @@
 """Output writers: NRRD volumes, raw dumps, detector dumps and
 reference-format checkpoints (port of ``rsmcrt_tpu/io/writer.py``;
 reference: src/writer.f90).  NumPy only.  The npz checkpoint is still to
-port (ROADMAP queue 1, item 9)."""
+port (ROADMAP queue 1, item 2)."""
 
 from __future__ import annotations
 

@@ -1,9 +1,12 @@
 """Simulation kernels: setup -> run -> finalise (port of
 ``rsmcrt_tpu/kernels.py``: the forward ``default`` kernel and the ``test``
 kernel; reference: src/kernelsMod.f90 default_MCRT :14, test_kernel
-:2069, setup :2225, finalise :2321).
+:2069, setup :2225, finalise :2321).  ``setup(kernel="escape")`` and
+``setup(kernel="inverse")`` parse the escape and inverse kernels' tables;
+those kernels live in :mod:`rsmcrt_tpu_torch.escape` and
+:mod:`rsmcrt_tpu_torch.inverse`.
 
-The live tev viewer is still to port (ROADMAP queue 1, item 14) and
+The live tev viewer is still to port (ROADMAP queue 1, item 4) and
 raises ``NotImplementedError``.
 """
 
@@ -118,7 +121,7 @@ def run_MCRT(parsed: ParsedConfig, scene: Scene, nphotons=None,
     device = scene.device
     if st.tev:
         raise NotImplementedError(
-            "the tev viewer is not ported (ROADMAP queue 1, item 14)")
+            "the tev viewer is not ported (ROADMAP queue 1, item 4)")
     nphotons = int(nphotons if nphotons is not None else st.nphotons)
     n_lanes = int(n_lanes if n_lanes is not None else
                   default_lanes(nphotons, device))

@@ -5,10 +5,18 @@
         res/validation1.toml
     python -m rsmcrt_tpu_torch.profile_megastep res/dslit.toml
     python -m rsmcrt_tpu_torch.profile_megastep --plain res/sphere.toml
+    python -m rsmcrt_tpu_torch.profile_megastep --escape \
+        res/escape_test.toml
+    python -m rsmcrt_tpu_torch.profile_megastep --inverse \
+        res/inverse_test.toml
 
 Builds the config's forward run as ``kernels.run_MCRT`` does (detector
 bank, fast-path defaults, the config's phasor and path history, which
-take the plain walk; ``--plain`` takes it for any config), takes
+take the plain walk; ``--plain`` takes it for any config), or with
+``--escape`` the config's escape-function run as ``escape.escape_run``
+builds it (chained, no fluence, no in-chain respawn), or with
+``--inverse`` the pMC run of ``inverse.detector_gradients`` (the plain
+walk with the scores of the config's inverse layer, no fluence), takes
 ``--warm`` megasteps so the lanes are in
 flight, times ``--steps`` megasteps on the host clock around synchronised
 work, then runs ``--profiled`` more (default ``--steps``) under
@@ -40,6 +48,10 @@ def main(argv=None) -> int:
                     help="fluence estimator off (detector workloads)")
     ap.add_argument("--plain", action="store_true",
                     help="the plain walk (chain_scatter off)")
+    ap.add_argument("--escape", action="store_true",
+                    help="the config's escape-function run")
+    ap.add_argument("--inverse", action="store_true",
+                    help="the config's pMC run (detector_gradients)")
     ap.add_argument("--warm", type=int, default=4)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--profiled", type=int, default=None,
@@ -54,21 +66,34 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    fluence = not args.no_fluence
-    parsed, scene = kernels.setup(args.config, device=dev)
+    fluence = not (args.no_fluence or args.escape or args.inverse)
+    kernel = ("escape" if args.escape else
+              "inverse" if args.inverse else "default")
+    parsed, scene = kernels.setup(args.config, kernel=kernel, device=dev)
     st = parsed.settings
-    fast = kernels.fast_path_defaults(fluence=fluence, device=dev)
-    if args.plain:
-        fast["chain_scatter"] = False
-    cfg = engine.TransportConfig(
-        nphotons=st.nphotons, n_lanes=kernels.default_lanes(st.nphotons,
-                                                            dev),
-        record_fluence=fluence, record_emission=True,
-        record_phasor=st.phasor,
-        history_len=64 if st.trackHistory else 0,
-        max_tracks=4096 if st.trackHistory else 0,
-        roulette_bounces=st.roulette_bounces,
-        roulette_chance=st.roulette_chance, **fast)
+    source = parsed.source
+    if args.escape:
+        from .escape import escape_run
+
+        source, cfg = escape_run(parsed, scene)[:2]
+    elif args.inverse:
+        from .inverse import _prim_location, pmc_config
+
+        cfg = pmc_config(parsed, scene,
+                         _prim_location(scene, st.inverse["layer"]))
+    else:
+        fast = kernels.fast_path_defaults(fluence=fluence, device=dev)
+        if args.plain:
+            fast["chain_scatter"] = False
+        cfg = engine.TransportConfig(
+            nphotons=st.nphotons,
+            n_lanes=kernels.default_lanes(st.nphotons, dev),
+            record_fluence=fluence, record_emission=True,
+            record_phasor=st.phasor,
+            history_len=64 if st.trackHistory else 0,
+            max_tracks=4096 if st.trackHistory else 0,
+            roulette_bounces=st.roulette_bounces,
+            roulette_chance=st.roulette_chance, **fast)
     walk = "chained" if cfg.chains(scene) else "plain"
     gen = torch.Generator(device=dev)
     gen.manual_seed(st.iseed)
@@ -76,15 +101,18 @@ def main(argv=None) -> int:
 
     def steps(n, carry):
         for _ in range(n):
-            carry = engine.transport_step(carry, scene, parsed.source,
-                                          st.grid, gen, cfg)
+            carry = engine.transport_step(carry, scene, source, st.grid,
+                                          gen, cfg)
         torch.cuda.synchronize(dev)
         return carry
 
     n_prof = args.steps if args.profiled is None else args.profiled
     print(f"[profile] {args.config}: {walk} walk, lanes {cfg.n_lanes}, "
           f"dda_substeps {cfg.dda_substeps}, chain_respawns "
-          f"{cfg.chain_respawns}, fluence {fluence}, phasor "
+          f"{cfg.chain_respawns}, in-chain respawn "
+          f"{cfg.respawns_in_chain(scene)}, escape {cfg.escape_shape}, "
+          f"inverse prim {cfg.inverse_prim}, "
+          f"fluence {fluence}, phasor "
           f"{cfg.record_phasor}, history {cfg.history_len}, detectors "
           f"{0 if parsed.detectors is None else parsed.detectors.n_detectors}"
           f" [{card}]", flush=True)

@@ -3,12 +3,12 @@ reference: src/photon.f90:159-1043).
 
 A :class:`Source` is a kind plus parameter tensors; ``sample`` consumes a
 block of uniforms ``u [B, n]`` and emits a whole wavefront of photons.
-Every kind of the reference is ported but ``escape_points`` (ROADMAP
-queue 1, item 12), which raises ``NotImplementedError``: ``point``,
-``pencil``, ``uniform``, ``circular``, ``focus`` (square, circle,
-gaussian), ``annulus`` (tophat, besselAnnulus, gaussian), the coherent
-``dslit`` and ``aperture`` sources of the phasor tally, and the ``slm``
-image source; wavelengths come from a ``Constant``, ``Piecewise1D`` or
+Every kind of the reference is ported: ``point``, ``pencil``,
+``uniform``, ``circular``, ``focus`` (square, circle, gaussian),
+``annulus`` (tophat, besselAnnulus, gaussian), the coherent ``dslit`` and
+``aperture`` sources of the phasor tally, the ``slm`` image source, and
+the escape function's ``escape_points`` (isotropic photons from the
+centre of each lane's source voxel ``sid``); wavelengths come from a ``Constant``, ``Piecewise1D`` or
 ``Piecewise2D`` spectrum.  The fixed frames (the circular source's
 mirrored branch, the focus and annulus rotations) are decided once on the
 host when the source is built, not per photon.
@@ -28,11 +28,9 @@ from ..optics.piecewise import (Constant, Piecewise1D, Piecewise2D,
                                 sample_piecewise1d, sample_piecewise2d)
 
 # uniforms consumed per source kind (the reference's SOURCE_UNIFORM_COUNT)
-SOURCE_UNIFORM_COUNT = {"point": 3, "pencil": 1, "uniform": 3,
-                        "circular": 3, "focus": 3, "annulus": 5, "dslit": 6,
-                        "aperture": 5, "slm": 3}
-
-_LATER = {"escape_points": "item 12: workloads"}
+SOURCE_UNIFORM_COUNT = {"escape_points": 3, "point": 3, "pencil": 1,
+                        "uniform": 3, "circular": 3, "focus": 3,
+                        "annulus": 5, "dslit": 6, "aperture": 5, "slm": 3}
 
 _BEAM_TYPES = {"focus": ("square", "circle", "gaussian"),
                "annulus": ("tophat", "besselAnnulus", "gaussian")}
@@ -95,10 +93,6 @@ class Source:
 
     def __post_init__(self):
         if self.kind not in SOURCE_UNIFORM_COUNT:
-            if self.kind in _LATER:
-                raise NotImplementedError(
-                    f"source kind {self.kind!r} is not ported (ROADMAP "
-                    f"queue 1, {_LATER[self.kind]})")
             raise ValueError(f"No such source {self.kind!r}")
         if self.spectrum is not None and not isinstance(
                 self.spectrum, (Constant, Piecewise1D, Piecewise2D)):
@@ -212,9 +206,11 @@ def _beam_direction(local, fl):
     return -delta / _norm(delta) * torch.sign(fl)
 
 
-def sample(source: Source, grid: CartGrid, u: torch.Tensor):
+def sample(source: Source, grid: CartGrid, u: torch.Tensor, sid=None):
     """Emit a wavefront from uniforms ``u [B, n_source_uniforms]`` in
-    (0, 1).  Returns (pos [B,3], dir [B,3], phase [B], wavelength [B])."""
+    (0, 1).  Returns (pos [B,3], dir [B,3], phase [B], wavelength [B]).
+    ``sid [B]`` is each lane's source voxel, read by ``escape_points``
+    only."""
     kind = source.kind
     p = {k: v.to(u.device) for k, v in source.params.items()}
     fr = source.frame
@@ -261,14 +257,20 @@ def sample(source: Source, grid: CartGrid, u: torch.Tensor):
         z2 = 0.5 - (1e-5 * (2.0 * 0.5 / 400.0))
         pos = torch.stack([x2, y2, torch.full_like(x2, z2)], dim=-1)
         direction, phase = _coherent_launch(x2 - x1, y2 - y1, z2 - z1)
-    elif kind == "point":
-        # reference: photon.f90:311-359
+    elif kind in ("point", "escape_points"):
+        # reference: photon.f90:311-359; escape_points launches from the
+        # centre of the lane's source voxel (kernelsMod.f90:167-184)
         phi = u[:, 0] * TWOPI
         cost = 2.0 * u[:, 1] - 1.0
         sint = torch.sqrt(torch.clamp(1.0 - cost * cost, min=0.0))
         direction = torch.stack(
             [sint * torch.cos(phi), sint * torch.sin(phi), cost], dim=-1)
-        pos = p["position"].expand(B, 3)
+        if kind == "point":
+            pos = p["position"].expand(B, 3)
+        else:
+            positions = p["positions"]  # [M, 3]
+            pos = positions[torch.clamp(sid, 0, positions.shape[0] - 1)
+                            .long()]
     elif kind == "pencil":
         # reference: photon.f90:652-710
         pos = _edge_nudge(p["position"].expand(B, 3), grid, 8e-6)

@@ -1,6 +1,7 @@
 """Wavefront photon transport engine (port of
 ``rsmcrt_tpu/transport/engine.py``: the forward path with its transport
-options, and detector banks).
+options, detector banks, escape-function attribution and the
+perturbation-MC statistics of the inverse kernel).
 
 A batch of photon lanes advances in lockstep, one *megastep* per
 :func:`transport_step` call:
@@ -36,9 +37,25 @@ rows use its ``signed`` option.  Detector bins change once per megastep
 in the analysis phase (:func:`record_hits`) and once after the chain
 (:func:`flush_bins`).
 
-Not ported: escape-function attribution and the pMC inverse statistics
-(``escape_shape``, ``inverse_prim``, ROADMAP queue 1 item 12), which raise
-``NotImplementedError``.
+Escape functions (``escape_shape = (M, ndect)``): lane photons are given
+source voxels ``sid`` in launch order, ``nphotons // M`` each, and their
+detector hit weights are added into ``tallies.escape_tot [M, ndect]`` at
+``sid * ndect + d`` through ``deposit_add_``: once a megastep for the
+analysis phase's hits and once for the chained walk's per-lane hit
+accumulator.  ``M * ndect`` stays far below 2^31 at any symmetry grid a
+config can ask for (a 256^3 grid with 64 detectors is 2^30), so the int32
+index of the deposit kernel holds it.  Escape runs turn in-chain respawn
+off, as the reference does: a lane's ``sid`` is then constant through its
+chained walk.
+
+Perturbation MC (``inverse_prim = p``): each photon carries its scatter
+count, path length and Henyey-Greenstein score inside layer ``p``, the
+Fresnel-choice score for ``p``'s index and the boundary-extinction score
+for its surface (``pmc_*``), and the direction tangent ``pmc_dd = d dir /
+d n_p`` carried through scatter, reflection and refraction by
+``torch.func.jvp`` of four closed-form functions; every detector hit adds
+``w * [1, cnt, len, hg, fn, bn]`` to ``tallies.pmc_stats [ndect, 6]``
+(a sum over lanes, a torch reduction).
 
 Random numbers: each megastep consumes up to three uniform blocks in
 (0, 1) (:class:`StepDraws`), drawn from the run's ``torch.Generator``
@@ -58,7 +75,8 @@ import numpy as np
 import torch
 
 from ..constants import CHANCE, THRESHOLD, TWOPI
-from ..detectors.detectors import check_bins, flush_bins, record_hits
+from ..detectors.detectors import (check_bins, flush_bins, ordered_cols,
+                                   record_hits)
 from ..grid import CartGrid, f32, get_voxel, voxel_flat_index
 from ..maths.qmc import halton_block, halton_shifts
 from ..sdfs import raycast
@@ -68,7 +86,7 @@ from ..sources.sources import sample as sample_source
 from ..tally import Tallies, zero_tallies
 from .deposit import deposit_add_
 from .fresnel import fresnel_coeff, reflect, refract
-from .scatter import sample_hg_cost, scatter_direction
+from .scatter import hg_logpdf_dg, sample_hg_cost, scatter_direction
 
 # uniform columns per megastep: a source-kind-dependent block followed by
 # seven fixed transport columns (offsets relative to the source block end)
@@ -118,16 +136,7 @@ class TransportConfig:
     chain_respawns: int = 1
 
     def check_ported(self):
-        """Raise for options that select a path this package lacks."""
-        todo = [
-            (tuple(self.escape_shape) != (0, 0), "escape_shape"),
-            (self.inverse_prim > 0, "inverse_prim"),
-        ]
-        for bad, name in todo:
-            if bad:
-                raise NotImplementedError(
-                    f"TransportConfig {name} is not ported "
-                    "(ROADMAP queue 1, item 12: workloads)")
+        """Raise for option values no path accepts."""
         if self.chain_respawns < 1:
             raise ValueError("chain_respawns must be >= 1")
 
@@ -141,11 +150,14 @@ class TransportConfig:
                 and (self.chain_march_iters > 0
                      or all(raycast.analytic_column_mask(scene))))
 
-    def respawns_in_chain(self, scene) -> bool:
-        """In-chain respawn runs on the chained walk unless the source is
-        quasi-random (its photon index is the analysis phase's)."""
-        return (self.chains(scene) and self.chain_respawn
-                and not self.qmc_source)
+    def respawns_in_chain(self, scene=None) -> bool:
+        """In-chain respawn runs on the chained walk (assumed without a
+        ``scene``) unless the source is quasi-random (its photon index is
+        the analysis phase's) or the run is an escape function (a lane's
+        source voxel must stay put through its walk), as the reference
+        decides (engine.py:1585-1587)."""
+        return ((scene is None or self.chains(scene)) and self.chain_respawn
+                and not self.qmc_source and self.escape_shape[0] == 0)
 
 
 @dataclass
@@ -211,11 +223,10 @@ def draw_step(generator: torch.Generator, B: int, cfg: TransportConfig,
     scene: those of the chained walk)."""
     n_src_u = n_source_uniforms(source)
     u_all = _uniform((B, n_src_u + _N_TRANSPORT_U), generator, device)
-    chains = cfg.chains(scene) if scene is not None else True
     uc = u_rsp = None
-    if chains:
+    if scene is None or cfg.chains(scene):
         uc = _uniform((B, cfg.dda_substeps, 4), generator, device)
-    if chains and cfg.chain_respawn and not cfg.qmc_source:
+    if cfg.respawns_in_chain(scene):
         u_rsp = _uniform((cfg.chain_respawns * B, n_src_u + 1), generator,
                          device)
     return StepDraws(u_all, uc, u_rsp)
@@ -252,12 +263,15 @@ def init_carry(grid: CartGrid, cfg: TransportConfig, bank=None,
     """A fresh carry on the grid's device: every lane dead, tallies 0.
     The detector bank is copied there, so the caller's stays as it is."""
     dev = grid.device
+    n_dect = bank.n_detectors if bank is not None else 0
     return SimCarry(
         state=_init_lanes(cfg.n_lanes, dev, cfg.history_len, dtype),
         tallies=zero_tallies(grid, dtype, escape_shape=cfg.escape_shape,
                              history_shape=(cfg.max_tracks,
                                             max(cfg.history_len, 1)),
-                             phasor=cfg.record_phasor, pmc_shape=(0, 6)),
+                             phasor=cfg.record_phasor,
+                             pmc_shape=(n_dect if cfg.inverse_prim > 0
+                                        else 0, 6)),
         bank=None if bank is None else bank.to(dev),
         launched=torch.zeros((), dtype=torch.int32, device=dev),
         step=torch.zeros((), dtype=torch.int32, device=dev),
@@ -326,6 +340,81 @@ def _wall_streams(pos, direction, cellf, grid):
     t0 = torch.clamp(t0, min=0.0)  # on-wall round-off
     dt = torch.where(direction == 0.0, _BIG, dv / torch.abs(safe))
     return t0, dt
+
+
+def _finite(t: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.isfinite(t), t, 0.0)
+
+
+def _fresnel_score(dirn, nvec, n1, n2, i1, i2, dd, ri, refl):
+    """d log P(reflect | transmit) / d n_p at a Fresnel branch: the
+    coefficient's forward-mode derivative along the direction tangent
+    ``dd`` and the indicators ``i1``, ``i2`` of which side is layer ``p``
+    (the total derivative, its angular term included)."""
+    dri = torch.func.jvp(lambda dv, a, b: fresnel_coeff(dv, nvec, a, b),
+                         (dirn, n1, n2), (dd, i1, i2))[1]
+    return torch.where(refl, dri / torch.clamp(ri, min=1e-9),
+                       -dri / torch.clamp(1.0 - ri, min=1e-9))
+
+
+def _extinction_score(inside, kappa, kappa_new, dirn, nvec, cross, refl):
+    """d log p / dR of moving layer ``p``'s surface outward by dR: a
+    crossing re-assigns dR / |cos| of path across the interface, a
+    reflection 2 dR / |cos| (``inside``: the photon is in layer ``p``)."""
+    costh = torch.clamp(torch.abs(torch.sum(dirn * nvec, dim=-1)), min=1e-3)
+    k_in = torch.where(inside, kappa, kappa_new)
+    k_out = torch.where(inside, kappa_new, kappa)
+    s_refl = torch.where(inside, -2.0, 2.0) * kappa / costh
+    return (torch.where(cross, (k_out - k_in) / costh, 0.0)
+            + torch.where(refl, s_refl, 0.0))
+
+
+def _refract_tangent(dirn, nvec, n1, n2, i1, i2, dd):
+    """The direction tangent through a refraction: Snell's rotation of
+    ``dd`` plus the bend from d eta / d n_p, eta = n1 / n2."""
+    n2s = torch.where(n2 > 0.0, n2, 1.0)
+    eta = n1 / n2s
+    eta_dot = (i1 * n2s - n1 * i2) / (n2s * n2s)
+    return _finite(torch.func.jvp(lambda dv, e: refract(dv, nvec, e),
+                                  (dirn, eta), (dd, eta_dot))[1])
+
+
+def _scatter_tangent(dirn, cost, phi, dd):
+    """The direction tangent through an HG scatter: a frame rotation at
+    fixed uniforms."""
+    return _finite(torch.func.jvp(
+        lambda dv: scatter_direction(dv, cost, phi), (dirn,), (dd,))[1])
+
+
+def _pmc_rows(hitw, hitt, cnt, length, hg, fn, bn, in_new):
+    """``[ndect, 6]`` sums over lanes of ``w * [1, cnt, len, hg, fn, bn]``
+    for hit weights ``hitw [B, ndect]``; the path length counts the new
+    segment up to the hit (``hitt``) where it runs in layer ``p``."""
+    len_at_hit = length[:, None] + torch.where(in_new[:, None], hitt, 0.0)
+    return torch.stack([hitw, hitw * cnt[:, None], hitw * len_at_hit,
+                        hitw * hg[:, None], hitw * fn[:, None],
+                        hitw * bn[:, None]], dim=-1).sum(dim=0)
+
+
+def _flush_escape(tl, sid, hitw):
+    """Add per-lane hit weights ``hitw [B, ndect]`` into
+    ``escape_tot[sid, d]`` with one deposit."""
+    ndect = hitw.shape[1]
+    flat = (sid[:, None] * ndect + torch.arange(
+        ndect, dtype=torch.int32, device=sid.device)).to(torch.int32)
+    deposit_add_(tl.escape_tot.view(-1), flat.reshape(-1),
+                 hitw.reshape(-1))
+
+
+def _layer_of_concat(scene, device) -> torch.Tensor:
+    """Layer id of each prim in concatenated-group order (the order of the
+    surface index ``seg_prim``)."""
+    user_of_concat = [0] * scene.n_prims
+    for u, c in enumerate(scene.perm):
+        user_of_concat[c] = u
+    return torch.as_tensor([scene.layer_ids[user_of_concat[c]]
+                            for c in range(scene.n_prims)],
+                           dtype=torch.int32, device=device)
 
 
 def _segment_probe(scene, pos, dirn, tau_dist, avail_cap, land_eps, eps,
@@ -408,7 +497,7 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
                  weight, tau, seg_rem, seg_interact, seg_srf, seg_cont,
                  seg_prim, layer, alive, steps, bounces, wavelength, phase,
                  tables, land_eps, seg_cap, mom_pos, mom_pos2,
-                 bank=None, respawn=None):
+                 bank=None, respawn=None, pmc=None):
     """DDA walk with in-line scatter, absorption, Fresnel-boundary and
     respawn chaining.
 
@@ -428,7 +517,10 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
     interaction deposits ``w (1 - albedo)`` (one ``[B, K]`` list) and
     plays roulette below ``THRESHOLD`` (kernelsMod.f90:2036-2066);
     otherwise an absorption ends the photon and fills one of its lane's
-    absorption record slots.
+    absorption record slots.  An escape run adds each lane's hit weights
+    into ``hit_acc [B, ndect]``; with ``inverse_prim`` the six ``pmc``
+    lane fields update per event and each new segment's hits add their
+    statistics rows into ``pmc_stats``.
     """
     dtype = pos.dtype
     dev = pos.device
@@ -484,6 +576,16 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
     opt_pack = torch.stack(
         [tables.kappa, tables.albedo, tables.hgg, tables.n], dim=-1)
     lanes = torch.arange(B, device=dev)
+    inv = cfg.inverse_prim
+    if inv > 0:
+        pm_cnt, pm_len, pm_hg, pm_fn, pm_bn, pm_dd = pmc
+        pmc_stats = torch.zeros((len(bank.order), 6), dtype=dtype,
+                                device=dev)
+        layer_of_concat = _layer_of_concat(scene, dev)
+    # escape functions: per-lane hit weights over the rounds (sid is
+    # constant through the walk: no in-chain respawn)
+    hit_acc = (torch.zeros((B, len(bank.order)), dtype=dtype, device=dev)
+               if cfg.escape_shape[0] > 0 else None)
 
     for r in range(K):
         c = torch.amin(t_next, dim=-1)  # [B] next wall along the segment
@@ -517,7 +619,8 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
         w_dep = w_l  # weight before any roulette reweight this round
 
         o_cur = _opt_lookup(tables, opt_pack, layer_l, wavelength_l)
-        albedo_l, g_l, n1 = o_cur[:, 1], o_cur[:, 2], o_cur[:, 3]
+        kappa_l, albedo_l, g_l, n1 = (o_cur[:, 0], o_cur[:, 1], o_cur[:, 2],
+                                      o_cur[:, 3])
 
         # --- interaction events --------------------------------------------
         if not survival:
@@ -569,6 +672,21 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
         died = died | srf_die
         bounces_l = torch.where(refl, bounces2, bounces_l)
 
+        if inv > 0:
+            # the Fresnel-choice and boundary-extinction scores of this
+            # round's surface events (reference engine.py:705-753)
+            i1 = (layer_l == inv).to(dtype)
+            i2 = (new_layer == inv).to(dtype)
+            # (every Fresnel branch reflects or transmits)
+            s_ch = _fresnel_score(dirc, nvec, n1, n2, i1, i2, pm_dd, ri, refl)
+            pm_fn = pm_fn + torch.where(needf, s_ch, 0.0)
+            inv_srf = srf & (layer_of_concat[prim_l.long()] == inv)
+            kappa_new = _opt_lookup(tables, tables.kappa, new_layer,
+                                    wavelength_l)
+            pm_bn = pm_bn + _extinction_score(
+                layer_l == inv, kappa_l, kappa_new, dirc, nvec,
+                inv_srf & crossing & ~refl, inv_srf & refl)
+
         # --- deposits: the interval plus, for transmitting lanes, the
         # crossing nudge (inttau2.f90:75-146) ------------------------------
         dep_len = length + torch.where(trans, delta_cross, 0.0)
@@ -589,6 +707,13 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
             do_sc[:, None], ndir_sc,
             torch.where(refl[:, None], dir_refl,
                         torch.where(do_refr[:, None], dir_refr, dirc)))
+        if inv > 0:
+            # the direction tangent through this round's event
+            dd_new = torch.where(
+                do_sc[:, None], _scatter_tangent(dirc, cost, phi, pm_dd),
+                torch.where(refl[:, None], reflect(pm_dd, nvec),
+                            torch.where(do_refr[:, None], _refract_tangent(
+                                dirc, nvec, n1, n2, i1, i2, pm_dd), pm_dd)))
         np_pos = torch.where(trans[:, None], probe, p_end)
         nlayer = torch.where(crossing & ~refl, new_layer, layer_l)
 
@@ -616,6 +741,11 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
             steps_l = torch.where(resp, 0, steps_l)
             wavelength_l = torch.where(resp, rc_wl[k, lanes], wavelength_l)
             phase_l = torch.where(resp, rc_phase[k, lanes], phase_l)
+            if inv > 0:
+                pm_cnt, pm_len, pm_hg, pm_fn, pm_bn = (
+                    torch.where(resp, 0.0, x)
+                    for x in (pm_cnt, pm_len, pm_hg, pm_fn, pm_bn))
+                dd_new = torch.where(rm, 0.0, dd_new)
 
         newtau = -torch.log(u_r[:, 3])
         # the crossing nudge is charged at the NEW medium's kappa
@@ -655,15 +785,31 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
 
         ev = ((do_sc | srf_cont | cont_ev) & ~over) | resp
         evm = ev[:, None]
+        if inv > 0:
+            # a scatter counts BEFORE the new segment's hit test, as in
+            # the analysis phase
+            sc_in = do_sc & (layer_l == inv)
+            pm_cnt = pm_cnt + sc_in.to(dtype)
+            pm_hg = pm_hg + torch.where(sc_in, hg_logpdf_dg(cost, g_l), 0.0)
         if bank is not None:
             # test each NEW segment against every detector at creation
             fams = check_bins(bank, np_pos, np_dir,
                               torch.where(ev, rem2, 0.0),
-                              torch.where(ev, w_l, 0.0))
-            for fam, (idx, w) in fams.items():
+                              torch.where(ev, w_l, 0.0), want_t=inv > 0)
+            for fam, row in fams.items():
                 acc = dect_acc.setdefault(fam, ([], []))
-                acc[0].append(idx)
-                acc[1].append(w)
+                acc[0].append(row[0])
+                acc[1].append(row[1])
+            if hit_acc is not None:
+                hit_acc = hit_acc + ordered_cols(bank, fams, 1)
+            if inv > 0:
+                pmc_stats = pmc_stats + _pmc_rows(
+                    ordered_cols(bank, fams, 1), ordered_cols(bank, fams, 2),
+                    pm_cnt, pm_len, pm_hg, pm_fn, pm_bn, nlayer == inv)
+        if inv > 0:
+            # the new segment's length counts AFTER its hit test
+            pm_len = pm_len + torch.where(ev & (nlayer == inv), rem2, 0.0)
+            pm_dd = torch.where(evm, dd_new, pm_dd)
         dirc = torch.where(evm, np_dir, dirc)
         p0 = torch.where(evm, np_pos, p0)
         if fluence:
@@ -724,7 +870,9 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
         absorb_flat=torch.stack(ab_flats if survival else absorb_fls,
                                 dim=-1), n_scat=n_scat,
         n_inter=n_inter, mom_pos=mom_pos, mom_pos2=mom_pos2, cand_k=cand_k,
-        bank=bank)
+        bank=bank, hit_acc=hit_acc,
+        pmc=((pm_cnt, pm_len, pm_hg, pm_fn, pm_bn, pm_dd, pmc_stats)
+             if inv > 0 else None))
 
 
 def _plain_march(scene, pos, direction, ds, tau_dist, avail, interior, eps,
@@ -870,7 +1018,21 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
         u_src = halton_block(torch.clamp(carry.launched + rank, min=0),
                              n_src_u, qmc_shifts)
 
-    src_pos, src_dir, src_phase, src_wl = sample_source(source, grid, u_src)
+    sid = st.sid
+    n_src = cfg.escape_shape[0]
+    if n_src > 0:
+        # photon index -> source voxel, an equal budget per voxel; the
+        # source samples at the voxel of the photon each lane launches
+        per_voxel = max(int(nphotons) // n_src, 1)
+        sid_new = torch.clamp(torch.div(carry.launched + rank, per_voxel,
+                                        rounding_mode="floor"),
+                              0, n_src - 1).to(torch.int32)
+        sid = torch.where(respawn, sid_new, sid)
+        src_pos, src_dir, src_phase, src_wl = sample_source(
+            source, grid, u_src, sid=sid_new)
+    else:
+        src_pos, src_dir, src_phase, src_wl = sample_source(source, grid,
+                                                            u_src)
     r = respawn[:, None]
     pos = torch.where(r, src_pos, st.pos)
     direction = torch.where(r, src_dir, st.dir)
@@ -887,6 +1049,17 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
     seg_prim = torch.where(respawn, 0, st.seg_prim)
     alive = st.alive | respawn
     launched = carry.launched + n_respawn
+    inv = cfg.inverse_prim
+    if inv > 0:
+        pmc_cnt, pmc_len, pmc_hg, pmc_fn, pmc_bn = (
+            torch.where(respawn, 0.0, x)
+            for x in (st.pmc_cnt, st.pmc_len, st.pmc_hg, st.pmc_fn,
+                      st.pmc_bn))
+        pmc_dd = torch.where(r, 0.0, st.pmc_dd)
+    else:
+        pmc_cnt, pmc_len, pmc_hg, pmc_fn, pmc_bn, pmc_dd = (
+            st.pmc_cnt, st.pmc_len, st.pmc_hg, st.pmc_fn, st.pmc_bn,
+            st.pmc_dd)
 
     history, hist_n = st.history, st.hist_n
     if cfg.history_len > 0:
@@ -981,6 +1154,21 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
         weight = torch.where(survive_rr, weight / chance, weight)
         overbounced = overbounced | (trapped & ~survive_rr)
 
+    if inv > 0:
+        # the n and shape scores of boundary events resolved here (the
+        # chained walk scores its own; reference engine.py:1297-1335)
+        i1s = (layer == inv).to(dtype)
+        i2s = (new_layer == inv).to(dtype)
+        s_ch = _fresnel_score(direction, nvec, n1, n2, i1s, i2s, pmc_dd, ri,
+                              reflecting)
+        pmc_fn = pmc_fn + torch.where(need_fresnel, s_ch, 0.0)
+        inv_srf = on_boundary & (bprim == inv)
+        pmc_bn = pmc_bn + _extinction_score(
+            layer == inv, kappa,
+            _opt_lookup(tables, tables.kappa, new_layer, wavelength),
+            direction, nvec, inv_srf & crossing & ~reflecting,
+            inv_srf & reflecting)
+
     # --- segment selection: min(optical-depth distance, next surface
     # along the ray, cap), the surface from the analytic raycast where the
     # prims have closed forms and from a bounded march for the rest ------
@@ -1036,6 +1224,14 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
     kappa_seg = _opt_lookup(tables, tables.kappa, layer, wavelength)
     tau = torch.where(need_seg,
                       torch.clamp(tau - seg_new * kappa_seg, min=0.0), tau)
+    if inv > 0:
+        # the direction tangent through the boundary event (i1s / i2s are
+        # the pre-crossing indicators)
+        pmc_dd = torch.where(
+            reflecting[:, None], reflect(pmc_dd, nvec),
+            torch.where((transmitting & need_fresnel)[:, None],
+                        _refract_tangent(direction, nvec, n1, n2, i1s, i2s,
+                                         pmc_dd), pmc_dd))
     direction = torch.where(
         reflecting[:, None], dir_reflected,
         torch.where((transmitting & need_fresnel)[:, None], dir_refracted,
@@ -1054,16 +1250,32 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
     # hit are kept ------------------------------------------------------
     bank = carry.bank
     track_count, track_dropped = tl.track_count, tl.track_dropped
+    pmc_stats = tl.pmc_stats
+    in_inverse = layer == inv
     if bank is not None:
         seg_len = torch.where(alive & need_seg, seg_rem, 0.0)
         w_hit = torch.where(alive, weight, 0.0)
-        if cfg.history_len > 0 and cfg.max_tracks > 0:
-            bank, hitw, _ = record_hits(bank, pos, direction, seg_len,
-                                        w_hit, want_hit_matrix=True)
-            track_count, track_dropped = _flush_tracks(tl, cfg, hitw,
-                                                       history, hist_n)
+        history_on = cfg.history_len > 0 and cfg.max_tracks > 0
+        if n_src > 0 or inv > 0 or history_on:
+            # the per-lane hit matrix: escape attribution by source voxel,
+            # pMC statistics rows, kept paths
+            bank, hitw, hitt = record_hits(bank, pos, direction, seg_len,
+                                           w_hit, want_hit_matrix=True)
+            if n_src > 0:
+                _flush_escape(tl, sid, hitw)
+            if inv > 0:
+                pmc_stats = pmc_stats + _pmc_rows(
+                    hitw, hitt, pmc_cnt, pmc_len, pmc_hg, pmc_fn, pmc_bn,
+                    in_inverse)
+            if history_on:
+                track_count, track_dropped = _flush_tracks(
+                    tl, cfg, hitw, history, hist_n)
         else:
             bank = record_hits(bank, pos, direction, seg_len, w_hit)
+    if inv > 0:
+        # the new segment's length counts AFTER its hit test
+        pmc_len = pmc_len + torch.where(alive & need_seg & in_inverse,
+                                        seg_rem, 0.0)
 
     # =================================================================
     # Phase 2: the walk
@@ -1105,7 +1317,9 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
             seg_rem, seg_interact, seg_srf, seg_cont, seg_prim, layer,
             alive, steps, bounces, wavelength, phase, tables, land_eps,
             seg_cap, tl.mom_pos, tl.mom_pos2, bank=bank,
-            respawn=respawn_cand)
+            respawn=respawn_cand,
+            pmc=((pmc_cnt, pmc_len, pmc_hg, pmc_fn, pmc_bn, pmc_dd)
+                 if inv > 0 else None))
         pos, direction, weight, tau = (out["pos"], out["dir"],
                                        out["weight"], out["tau"])
         seg_rem, seg_interact, seg_srf = (out["seg_rem"],
@@ -1126,6 +1340,12 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
             deposit_add_(tl.emission, r_flat,
                          (consumed.reshape(-1) & r_vok).to(dtype))
         bank = out["bank"]
+        if out["hit_acc"] is not None:
+            _flush_escape(tl, sid, out["hit_acc"])
+        if inv > 0:
+            (pmc_cnt, pmc_len, pmc_hg, pmc_fn, pmc_bn, pmc_dd,
+             pmc_add) = out["pmc"]
+            pmc_stats = pmc_stats + pmc_add
         deps_k = out["deps_k"]
         if cfg.record_fluence:
             deposit_add_(tl.jmean, out["flat_k"].reshape(-1),
@@ -1213,6 +1433,11 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
         died = roulette & ~survive
         do_scatter = interact & ~died
 
+    if inv > 0:
+        # the HG scatter rotates the direction tangent with its frame
+        pmc_dd = torch.where(do_scatter[:, None],
+                             _scatter_tangent(direction, cost, phi, pmc_dd),
+                             pmc_dd)
     direction = torch.where(do_scatter[:, None], dir_scattered, direction)
     tau = torch.where(do_scatter, -torch.log(u[:, _U_TAU]), tau)
     steps = steps + do_scatter.to(torch.int32)
@@ -1220,6 +1445,10 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
     n_interactions = torch.sum(interact, dtype=torch.int32)
     if chaining:
         n_interactions = n_interactions + out["n_inter"]
+    if inv > 0:
+        sc_in = do_scatter & (layer == inv)
+        pmc_cnt = pmc_cnt + sc_in.to(dtype)
+        pmc_hg = pmc_hg + torch.where(sc_in, hg_logpdf_dg(cost, g), 0.0)
 
     if cfg.history_len > 0:
         # the interaction position and scatter order into the ring
@@ -1271,10 +1500,11 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
         st, pos=pos, dir=direction, weight=weight, layer=layer, tau=tau,
         seg_rem=seg_rem, seg_interact=seg_interact, seg_srf=seg_srf,
         seg_cont=seg_cont, seg_prim=seg_prim, alive=alive, bounces=bounces,
-        steps=steps, phase=phase, wavelength=wavelength, history=history,
-        hist_n=hist_n)
+        steps=steps, phase=phase, wavelength=wavelength, sid=sid,
+        history=history, hist_n=hist_n, pmc_cnt=pmc_cnt, pmc_len=pmc_len,
+        pmc_hg=pmc_hg, pmc_fn=pmc_fn, pmc_bn=pmc_bn, pmc_dd=pmc_dd)
     new_tallies = replace(tl, nscatt=nscatt, mom_pos=mom_pos,
-                          mom_pos2=mom_pos2, perf=perf,
+                          mom_pos2=mom_pos2, perf=perf, pmc_stats=pmc_stats,
                           track_count=track_count,
                           track_dropped=track_dropped)
     return SimCarry(state=new_state, tallies=new_tallies, bank=bank,

@@ -55,3 +55,13 @@ def hg_scatter(direction: torch.Tensor, u_cost: torch.Tensor,
     cost = sample_hg_cost(u_cost, hgg)
     phi = TWOPI * u_phi
     return scatter_direction(direction, cost, phi)
+
+
+def hg_logpdf_dg(cost: torch.Tensor, hgg) -> torch.Tensor:
+    """d/dg log p_HG(cost; g), the per-scatter score of the perturbation-MC
+    gradient of detector totals with respect to the anisotropy, with
+    p_HG = 0.5 (1 - g^2) / (1 + g^2 - 2 g cost)^{3/2}."""
+    g = torch.as_tensor(hgg, dtype=cost.dtype, device=cost.device)
+    denom = 1.0 + g * g - 2.0 * g * cost
+    return (-2.0 * g) / torch.clamp(1.0 - g * g, min=1e-12) - 1.5 * (
+        2.0 * g - 2.0 * cost) / torch.clamp(denom, min=1e-12)

@@ -125,6 +125,10 @@ def test_warmup():
               dataclasses.replace(cfg, record_fluence=False), bank=bank,
               min_lanes=256)
     assert float(bank.circle.data.sum()) == 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.warmup(scene, src, grid, None,
-                  dataclasses.replace(cfg, escape_shape=(2, 1)), bank=bank)
+    # an escape-function and a pMC configuration warm up too, and leave
+    # the caller's bins as they were
+    for opt in (dict(escape_shape=(2, 1)), dict(inverse_prim=1)):
+        te.warmup(scene, src, grid, torch.Generator().manual_seed(2),
+                  dataclasses.replace(cfg, record_fluence=False, **opt),
+                  bank=bank, min_lanes=256)
+    assert float(bank.circle.data.sum()) == 0.0

@@ -38,9 +38,10 @@ def test_port_never_imports_jax():
              for p in (ROOT / "rsmcrt_tpu_torch").rglob("*.py")}
     # every source file of the package was imported (not only __init__s)
     assert int(res.stdout.split()[-1]) == len(names) - 1, names
-    # the plain walk's modules among them
+    # the plain walk's, escape and inverse kernels' modules among them
     for mod in ("maths.qmc", "io.history", "optics.piecewise",
-                "optics.properties", "transport.engine"):
+                "optics.properties", "transport.engine", "escape",
+                "inverse", "maths.interpolate"):
         assert f"rsmcrt_tpu_torch.{mod}" in res.stdout.split(), mod
 
 

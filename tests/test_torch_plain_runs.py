@@ -207,14 +207,23 @@ def test_cli_runs_the_new_options(tmp_path, monkeypatch, capsys):
                      "test", str(ROOT / "res" / "scat_test2.toml")]) == 0
     assert "nscatt/photon" in capsys.readouterr().out
     assert (tmp_path / "positions.dat").exists()
+    # the escape and inverse kernels dispatch to their entry points
+    from rsmcrt_tpu_torch import escape, inverse
+
+    calls = []
+    monkeypatch.setattr(escape, "escape_function",
+                        lambda *a, **k: calls.append(("escape", a, k)))
+    monkeypatch.setattr(inverse, "inverse_MCRT",
+                        lambda *a, **k: calls.append(("inverse", a, k)))
     for kernel in ("escape", "inverse"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            cli.main(["--device", "cpu", "--kernel", kernel, str(slab)])
-    # check_ported: the options of this slice run, escape and inverse raise
+        assert cli.main(["--device", "cpu", "--kernel", kernel,
+                         str(slab)]) == 0
+    assert [c[0] for c in calls] == ["escape", "inverse"]
+    assert all(c[2]["device"] == "cpu" for c in calls)
+    # check_ported: escape and inverse configurations pass
     cfg = te.TransportConfig(nphotons=1)
     for opt in (dict(escape_shape=(2, 1)), dict(inverse_prim=1)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            dataclasses.replace(cfg, **opt).check_ported()
+        dataclasses.replace(cfg, **opt).check_ported()
 
 
 def test_coherent_source_phase_is_used_as_launched():

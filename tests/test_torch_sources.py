@@ -80,10 +80,13 @@ def test_pencil_config_needs_a_direction(tmp_path):
 
 
 def test_unported_source_kinds_raise(tmp_path):
-    """Only the escape kernel's ``escape_points`` is still to port; the
-    coherent sources build, and the image source needs a 2D spectrum."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsrc.build_source("escape_points", position=[0, 0, 0])
+    """Every source kind builds (the escape kernel's ``escape_points``
+    too) and an unknown kind raises; the coherent sources build, and the
+    image source needs a 2D spectrum."""
+    assert tsrc.build_source("escape_points",
+                             positions=[[0, 0, 0]]).kind == "escape_points"
+    with pytest.raises(ValueError, match="No such source"):
+        tsrc.build_source("laser", position=[0, 0, 0])
     for kind in ("dslit", "aperture"):
         assert tsrc.build_source(kind, position=[0, 0, 0]).kind == kind
     with pytest.raises(TypeError, match="2D spectrum"):

@@ -174,13 +174,16 @@ def test_one_fluenceless_megastep_with_bank_matches_reference():
 
 
 def test_unported_options_raise():
-    """Escape functions and the pMC inverse statistics still raise; the
-    plain walk's options and transport options run."""
+    """Every transport option of the reference runs, escape functions and
+    the pMC inverse statistics included; only ``chain_respawns < 1``,
+    which no path accepts, raises."""
     cfg = te.TransportConfig(nphotons=1, chain_scatter=True)
-    for opt in (dict(escape_shape=(2, 1)), dict(inverse_prim=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
-            dataclasses.replace(cfg, **opt).check_ported()
-    for opt in (dict(survival_bias=True), dict(record_phasor=True),
+    with pytest.raises(ValueError, match="chain_respawns"):
+        dataclasses.replace(cfg, chain_respawns=0).check_ported()
+    for opt in (dict(escape_shape=(2, 1)), dict(inverse_prim=1),
+                dict(escape_shape=(2, 1), chain_scatter=False),
+                dict(inverse_prim=1, chain_scatter=False),
+                dict(survival_bias=True), dict(record_phasor=True),
                 dict(history_len=4), dict(qmc_source=True),
                 dict(record_fluence=False, chain_scatter=False),
                 dict(chain_scatter=False)):
