@@ -110,6 +110,35 @@ Phases (each raises on failure; the exit code is non-zero on any):
     Each run of phases 21-22 must launch the deposit kernel (the escape
     flushes, the absorption deposits) and make no plain call.
 
+23. the deposit kernel's float64 instantiation against its plain twin on
+    phase 3's three mixes and the captured fluence rows cast to float64
+    (rtol 1e-12 of the largest cell), and the backward kernel
+    ``deposit_gather`` in float32 and float64 on the captured fluence rows
+    with a random ``grad_tally``, equal to its plain twin; each timed
+    beside its plain twin and one PyTorch call (``index_add_`` in float64,
+    ``index_select``).
+24. the pathwise gradient (tests/test_autodiff.py) on the card:
+    ``torch.autograd.grad`` of ``sum(jmean) / nphotons`` in ``mua``
+    through ``engine.transport_step``, the absorber box at 32,768 lanes
+    and photons on 200^3 for 48 megasteps (K = 8, the plain walk) against
+    a common-random-number central difference (max(1e-3, 2%)); the
+    chained refractive sphere at 32,768 lanes on 200^3 for 24 megasteps
+    (finite, non-zero); the absorber box at 512 lanes on 32^3 with the
+    same draws on the card and on the CPU (rel 1e-4).  Seconds forward and
+    backward and peak device memory of each; every deposit goes through
+    the kernel and the backward launches one gather for each deposit that
+    went through the autograd Function.
+25. float64 at full width (32,768 lanes, 200^3, K = 64): the scat_test
+    sphere in float64 at eps = 1e-8 (nscatt/photon 57.5 +- 1.0 at 100,000
+    photons) and the refractive bench sphere in float32 and then in
+    float64 (100,000 photons each): fluence per photon within 5%,
+    photons/s of both; the float64 tallies are float64 and every deposit
+    hands the kernel float64 values.
+26. checkpoints on the card: tests/test_checkpoint_resume.py's run
+    (1,800 of 3,000 photons through ``kernels.checkpoint_now``, the resume
+    launches 1,200, within 10% of a full run) and the npz checkpoint's
+    round trip with res/test_dects.toml's detector bank.
+
 Phase 17's wavelengths are those the run launched: the engine's source
 sampler is wrapped for that run (``_launched_wavelengths``).
 
@@ -423,6 +452,8 @@ def phase_kernel(dev, card):
                 f"{t_p1:.4f}/{t_p2:.4f} ms, one index_add_ {t_lib:.4f} ms, "
                 f"bound {bound:.4f} ms ({touched} cells touched)")
         rows[name] = row
+        if name == "capture_jmean":
+            row["inputs"] = (idx, val)  # phase 23's gather runs on them
         log(line + f" [{card}]")
     bad = dep.out_of_range_count(dev)
     if bad != 0:
@@ -1752,6 +1783,443 @@ def phase_inverse(dev, tmp, card):
     return launches + gd_launches + cut_launches
 
 
+# --- phases 23-26: the float64 instantiation, the backward kernel, gradients,
+# float64 runs and checkpoints ---------------------------------------------
+
+def _gather_library(grad, idx):
+    """The one PyTorch call that gathers the same cells (a yardstick, not
+    used by the port): ``index_select`` of every row, kept or not."""
+    idx_l = idx.long()
+    return lambda: grad.index_select(0, idx_l)
+
+
+def phase_kernel_f64_gather(dev, card, jmean_rows):
+    """``deposit_add_`` in float64 against its plain twin on phase 3's
+    three mixes and the captured fluence rows, cast to float64 (rtol
+    1e-12 of the largest cell: float64 atomics add in a run-dependent
+    order), and ``deposit_gather`` in float32 and float64 on the captured
+    rows with a random ``grad_tally`` against its plain twin (exactly: a
+    gather sums nothing); each timed beside its plain twin and one PyTorch
+    call (``index_add_`` in float64, ``index_select``)."""
+    from rsmcrt_tpu_torch.transport import deposit as dep
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    inputs = {k: (i, v.double()) for k, (i, v) in _mixes(dev, gen).items()}
+    inputs["capture_jmean"] = (jmean_rows[0], jmean_rows[1].double())
+    n_cells = GRID ** 3
+    rows = {}
+    for name, (idx, val) in inputs.items():
+        tally = torch.zeros(n_cells, dtype=torch.float64, device=dev)
+        got = dep.deposit_add_(tally.clone(), idx, val)
+        want = dep.deposit_add_plain(tally.clone(), idx, val)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if err > 1e-12 * scale:
+            raise AssertionError(f"f64 {name}: kernel vs plain {err} > "
+                                 f"1e-12 * {scale}")
+        t_p1, t_k1, t_k2, t_p2 = (_time_ms(f) for f in (
+            lambda: dep.deposit_add_plain(tally, idx, val),
+            lambda: dep.deposit_add_(tally, idx, val),
+            lambda: dep.deposit_add_(tally, idx, val),
+            lambda: dep.deposit_add_plain(tally, idx, val)))
+        t_lib = min(_time_ms(_library_add(tally, idx, val))
+                    for _ in range(2))
+        touched = int(torch.unique(idx[val > 0]).numel())
+        # each row's int32 index and float64 value read once; each touched
+        # cell read and written once
+        bound = _bound_ms(12 * idx.numel() + 16 * touched)
+        rows[f"f64_{name}"] = dict(err=err, ms=min(t_k1, t_k2),
+                                   plain_ms=min(t_p1, t_p2),
+                                   library_ms=t_lib, bound_ms=bound)
+        log(f"[f64] deposit_add {name}: {idx.numel()} rows, max_abs_err "
+            f"{err:.3e} (max cell {scale:.6g}); kernel {t_k1:.4f}/"
+            f"{t_k2:.4f} ms, plain {t_p1:.4f}/{t_p2:.4f} ms, one "
+            f"index_add_ {t_lib:.4f} ms, bound {bound:.4f} ms [{card}]")
+    idx, val32 = jmean_rows
+    for dtype in (torch.float32, torch.float64):
+        val = val32.to(dtype)
+        grad = torch.randn(n_cells, generator=gen, device=dev, dtype=dtype)
+        before = dep.gather_kernel_launches
+        got = dep.deposit_gather(grad, idx, val)
+        want = dep.deposit_gather_plain(grad, idx, val)
+        torch.cuda.synchronize()
+        if dep.gather_kernel_launches != before + 1:
+            raise AssertionError("deposit_gather did not launch its kernel")
+        if not torch.equal(got, want):
+            raise AssertionError(f"gather {dtype}: kernel != plain twin")
+        got_s = dep.deposit_gather(grad, idx, val, signed=True)
+        if not torch.equal(got_s, dep.deposit_gather_plain(grad, idx, val,
+                                                           signed=True)):
+            raise AssertionError(f"signed gather {dtype}: kernel != plain")
+        t_p1, t_k1, t_k2, t_p2 = (_time_ms(f) for f in (
+            lambda: dep.deposit_gather_plain(grad, idx, val),
+            lambda: dep.deposit_gather(grad, idx, val),
+            lambda: dep.deposit_gather(grad, idx, val),
+            lambda: dep.deposit_gather_plain(grad, idx, val)))
+        t_lib = min(_time_ms(_gather_library(grad, idx)) for _ in range(2))
+        s = val.element_size()
+        kept = val > 0
+        touched = int(torch.unique(idx[kept]).numel())
+        # each row's index and value read and its gradient written once;
+        # each kept row's cell of grad_tally read once
+        bound = _bound_ms((4 + 2 * s) * idx.numel() + s * touched)
+        key = "gather" if dtype == torch.float32 else "gather_f64"
+        rows[key] = dict(err=0.0, ms=min(t_k1, t_k2),
+                         plain_ms=min(t_p1, t_p2), library_ms=t_lib,
+                         bound_ms=bound)
+        log(f"[gather] {dtype}: {idx.numel()} captured fluence rows, "
+            f"{int(kept.sum())} kept, {touched} cells; equal to the plain "
+            f"twin (signed too); kernel {t_k1:.4f}/{t_k2:.4f} ms, plain "
+            f"{t_p1:.4f}/{t_p2:.4f} ms, one index_select {t_lib:.4f} ms, "
+            f"bound {bound:.4f} ms [{card}]")
+    return rows
+
+
+def _box_absorber(d, g):
+    """tests/test_autodiff.py's pure absorber: a 2 x 2 x 2 box (mus 0,
+    mua 0.5, g 0, n 1) filling a g^3 grid, a pencil beam from z = -0.99."""
+    from rsmcrt_tpu_torch.grid import cart_grid
+    from rsmcrt_tpu_torch.optics.properties import mono
+    from rsmcrt_tpu_torch.sdfs import scene as S
+    from rsmcrt_tpu_torch.sources.sources import build_source
+
+    scene = S.build_scene([S.box([2.0, 2.0, 2.0], mono(0.0, 0.5, 0.0, 1.0),
+                                 1, device=d)], device=d)
+    src = build_source("pencil", device=d, position=[0.0, 0.0, -0.99],
+                       direction=[0.0, 0.0, 1.0])
+    return scene, cart_grid(g, g, g, 1.0, 1.0, 1.0, device=d), src
+
+
+def _bench_sphere(d, g, dtype=torch.float32, mus=10.0, mua=0.1, hgg=0.9,
+                  n=1.38):
+    """res/sphere.toml's physics (a sphere in a vacuum box, a point source
+    at the centre) on a g^3 grid, built in ``dtype``."""
+    from rsmcrt_tpu_torch.grid import cart_grid
+    from rsmcrt_tpu_torch.optics.properties import mono
+    from rsmcrt_tpu_torch.sdfs import scene as S
+    from rsmcrt_tpu_torch.sources.sources import build_source
+
+    scene = S.build_scene([
+        S.sphere(1.0, mono(mus, mua, hgg, n, dtype=dtype), 1, device=d,
+                 dtype=dtype),
+        S.box([2.0, 2.0, 2.0], mono(0.0, 0.0, 0.0, 1.0, dtype=dtype), 2,
+              device=d, dtype=dtype)], device=d, dtype=dtype)
+    src = build_source("point", device=d, dtype=dtype,
+                       position=[0.0, 0.0, 0.0])
+    return scene, cart_grid(g, g, g, 1.0, 1.0, 1.0, dtype=dtype,
+                            device=d), src
+
+
+def _mua_loss(scene, grid, src, cfg, draws, mua):
+    """``sum(jmean) / nphotons`` after ``len(draws)`` megasteps with
+    ``tables.mua[1] = mua`` (the reference test's loss)."""
+    import dataclasses
+
+    from rsmcrt_tpu_torch.transport import engine
+
+    m = scene.tables.mua
+    sc = dataclasses.replace(scene, tables=dataclasses.replace(
+        scene.tables, mua=torch.cat([m[:1], mua.reshape(1), m[2:]])))
+    c = engine.init_carry(grid, cfg)
+    for d in draws:
+        c = engine.transport_step(c, sc, src, grid, None, cfg, draws=d)
+    return c.tallies.jmean.sum() / cfg.nphotons
+
+
+def _grad_run(dev, scene, grid, src, cfg, draws, mua0):
+    """The loss and its gradient in ``mua`` on ``dev``: seconds forward,
+    seconds backward, peak device memory and the deposit counts of the
+    run (the backward's gathers included)."""
+    from rsmcrt_tpu_torch.transport import deposit as dep
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    dep.reset_counts()
+    m = torch.tensor(mua0, device=dev, requires_grad=True)
+    t0 = time.perf_counter()
+    loss = _mua_loss(scene, grid, src, cfg, draws, m)
+    if on_card:
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    (g,) = torch.autograd.grad(loss, m)
+    g = float(g)
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    counts = dict(launches=dep.deposit_kernel_launches,
+                  plain=dep.deposit_plain_calls,
+                  autograd=dep.deposit_autograd_calls,
+                  gathers=dep.gather_kernel_launches)
+    return float(loss.detach()), g, t1 - t0, t2 - t1, peak, counts
+
+
+def _check_grad_counts(counts, what):
+    """Every deposit went through the kernel, and the backward launched
+    one gather for every deposit that went through the autograd
+    Function."""
+    if (counts["plain"] != 0 or counts["launches"] <= 0
+            or counts["autograd"] <= 0
+            or counts["gathers"] != counts["autograd"]):
+        raise AssertionError(f"{what}: deposit counts {counts}")
+
+
+def phase_gradient(dev, card, steps=48, chain_steps=24, k=8):
+    """The pathwise gradient through ``engine.transport_step`` on the card
+    (tests/test_autodiff.py): the absorber box at full width (32,768
+    lanes and photons, 200^3, ``steps`` megasteps, K = ``k``, the plain
+    walk) against a common-random-number central difference (h = 5e-3,
+    the same draws in every run) within max(1e-3, 2%); the chained
+    refractive sphere (res/sphere.toml physics) at 32,768 lanes on 200^3
+    for ``chain_steps`` megasteps: finite and non-zero; the absorber box
+    at 512 lanes on 32^3 with the same injected draws on the card and on
+    the CPU: equal to rel 1e-4."""
+    from rsmcrt_tpu_torch.transport import engine
+
+    gathers = 0
+    scene, grid, src = _box_absorber(dev, GRID)
+    cfg = engine.TransportConfig(nphotons=N_LANES, n_lanes=N_LANES,
+                                 dda_substeps=k, max_steps=steps)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    draws = [engine.draw_step(gen, N_LANES, cfg, src, dev, scene)
+             for _ in range(steps)]
+    loss, g, t_f, t_b, peak, counts = _grad_run(dev, scene, grid, src, cfg,
+                                                draws, 0.5)
+    _check_grad_counts(counts, "absorber box")
+    gathers += counts["gathers"]
+    h = 5e-3
+    with torch.no_grad():
+        lp, lm = (float(_mua_loss(scene, grid, src, cfg, draws,
+                                  torch.tensor(m, device=dev)))
+                  for m in (0.5 + h, 0.5 - h))
+    fd = (lp - lm) / (2 * h)
+    log(f"[gradient] absorber box, {N_LANES} lanes and photons, {GRID}^3, "
+        f"{steps} megasteps, K = {k}: loss {loss:.6f}, dloss/dmua {g:.6f}, "
+        f"CRN central difference {fd:.6f} (h {h}); forward {t_f:.3f} s, "
+        f"backward {t_b:.3f} s (ratio {t_b / t_f:.3f}), peak device memory "
+        f"{peak / 2**30:.3f} GiB; deposits {counts} [{card}]")
+    if not (g < 0.0 and abs(g - fd) <= max(1e-3, 0.02 * abs(fd))):
+        raise AssertionError(f"absorber gradient {g} vs CRN {fd}")
+    scene, grid, src = _bench_sphere(dev, GRID)
+    cfg = engine.TransportConfig(nphotons=N_LANES, n_lanes=N_LANES,
+                                 dda_substeps=k, chain_scatter=True,
+                                 max_steps=chain_steps)
+    draws = [engine.draw_step(gen, N_LANES, cfg, src, dev, scene)
+             for _ in range(chain_steps)]
+    loss, g, t_f, t_b, peak, counts = _grad_run(dev, scene, grid, src, cfg,
+                                                draws, 0.1)
+    _check_grad_counts(counts, "chained sphere")
+    gathers += counts["gathers"]
+    log(f"[gradient] chained sphere, {N_LANES} lanes, {GRID}^3, "
+        f"{chain_steps} megasteps, K = {k}: loss {loss:.6f}, dloss/dmua "
+        f"{g:.6f}; forward {t_f:.3f} s, backward {t_b:.3f} s (ratio "
+        f"{t_b / t_f:.3f}), peak device memory {peak / 2**30:.3f} GiB; "
+        f"deposits {counts} [{card}]")
+    if not (np.isfinite(g) and g != 0.0):
+        raise AssertionError(f"chained sphere gradient {g}")
+    cpu = torch.device("cpu")
+    cfg = engine.TransportConfig(nphotons=512, n_lanes=512, dda_substeps=k,
+                                 max_steps=steps)
+    host = torch.Generator().manual_seed(11)
+    scene, _, src = _box_absorber(cpu, 32)
+    draws = [engine.draw_step(host, 512, cfg, src, cpu, scene)
+             for _ in range(steps)]
+    card_run, cpu_run = (
+        _grad_run(d, *_box_absorber(d, 32), cfg,
+                  [engine.StepDraws(x.u_all.to(d), None, None)
+                   for x in draws], 0.5)
+        for d in (dev, cpu))
+    _check_grad_counts(card_run[5], "absorber box 32^3")
+    gathers += card_run[5]["gathers"]
+    (lc, gc), (lh, gh) = card_run[:2], cpu_run[:2]
+    log(f"[gradient] absorber box 512 lanes, 32^3, same draws: card loss "
+        f"{lc:.7f} grad {gc:.7f}, CPU loss {lh:.7f} grad {gh:.7f} (rel "
+        f"{abs(gc - gh) / abs(gh):.3e}) [{card}]")
+    if abs(gc - gh) > 1e-4 * abs(gh) or abs(lc - lh) > 1e-4 * abs(lh):
+        raise AssertionError("card and CPU gradients disagree")
+    return gathers
+
+
+def _f64_sim(dev, scene, grid, src, n, eps):
+    """``engine.simulate`` on the card with the fast-path defaults, every
+    deposit's tally and value types recorded: ``(tallies, launched,
+    wall s, photons/s, kernel launches, deposit types)``."""
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.transport import deposit as dep
+    from rsmcrt_tpu_torch.transport import engine
+
+    cfg = engine.TransportConfig(nphotons=n, n_lanes=N_LANES, eps=eps,
+                                 record_emission=True,
+                                 **kernels.fast_path_defaults(device=dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    types = set()
+    real = engine.deposit_add_
+
+    def spy(tally, idx, val, *a, **kw):
+        types.add((tally.dtype, val.dtype))
+        return real(tally, idx, val, *a, **kw)
+
+    dep.reset_counts()
+    engine.deposit_add_ = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tl, _, launched, _ = engine.simulate(scene, src, grid, gen, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        engine.deposit_add_ = real
+    launched = int(launched)
+    if launched != n or dep.deposit_plain_calls != 0 \
+            or dep.deposit_kernel_launches <= 0:
+        raise AssertionError(f"launched {launched}, deposits "
+                             f"{dep.deposit_kernel_launches} / plain "
+                             f"{dep.deposit_plain_calls}")
+    return tl, launched, wall, launched / wall, \
+        dep.deposit_kernel_launches, types
+
+
+def phase_f64(dev, card, n=100_000):
+    """float64 transport on the card at full width (32,768 lanes, 200^3):
+    the scat_test sphere (tau 10, mus 10, mua 0, g 0, n 1) in float64 at
+    eps = 1e-8, nscatt/photon 57.5 +- 1.0 at ``n`` photons; the refractive
+    bench sphere in float32 (eps 1e-5) and then in float64 (eps 1e-8),
+    ``n`` photons each: fluence per photon within 5%, photons/s of each
+    (one pair: a second pair in reverse order would add two more runs of
+    ``n`` photons to the script's time limit).  The float64 runs' tallies are float64 and every deposit
+    hands the kernel float64 values."""
+    f64 = torch.float64
+    scene, grid, src = _bench_sphere(dev, GRID, f64, 10.0, 0.0, 0.0, 1.0)
+    tl, launched, wall, rate, launches, types = _f64_sim(
+        dev, scene, grid, src, n, 1e-8)
+    ns = float(tl.nscatt) / launched
+    log(f"[f64] scat_test sphere in float64, eps 1e-8: {launched} photons, "
+        f"nscatt/photon {ns:.4f} (want 57.5 +- 1.0), {wall:.2f} s, "
+        f"{rate:.1f} photons/s; {launches} deposit launches, types "
+        f"{sorted(map(str, types))} [{card}]")
+    if abs(ns - 57.5) >= 1.0 or tl.jmean.dtype != f64 \
+            or types != {(f64, f64)}:
+        raise AssertionError(f"f64 scat_test: nscatt {ns}, types {types}")
+    f64_launches = launches
+    runs = {}
+    for dtype in (torch.float32, f64):
+        scene, grid, src = _bench_sphere(dev, GRID, dtype)
+        eps = 1e-8 if dtype == f64 else 1e-5
+        tl, launched, wall, rate, launches, types = _f64_sim(
+            dev, scene, grid, src, n, eps)
+        if types != {(dtype, dtype)} or tl.jmean.dtype != dtype:
+            raise AssertionError(f"{dtype} run deposited {types}")
+        if dtype == f64:
+            f64_launches += launches
+        runs.setdefault(dtype, []).append(
+            (float(tl.jmean.double().sum()) / launched, rate))
+        log(f"[f64] refractive sphere in {dtype}: {launched} photons, "
+            f"fluence/photon {runs[dtype][-1][0]:.5f}, {wall:.2f} s, "
+            f"{rate:.1f} photons/s [{card}]")
+    j32 = np.mean([r[0] for r in runs[torch.float32]])
+    j64 = np.mean([r[0] for r in runs[f64]])
+    r32 = [r[1] for r in runs[torch.float32]]
+    r64 = [r[1] for r in runs[f64]]
+    log(f"[f64] fluence/photon float32 {j32:.5f} vs float64 {j64:.5f} (rel "
+        f"{abs(j64 - j32) / j32:.4f}); photons/s float32 {r32} float64 "
+        f"{r64} (ratio f64/f32 {np.mean(r64) / np.mean(r32):.3f}) [{card}]")
+    if abs(j64 - j32) / j32 >= 0.05:
+        raise AssertionError("float64 and float32 fluence disagree")
+    return f64_launches
+
+
+CKPT_CFG = """
+[source]
+name = "point"
+nphotons = {n}
+position = [0.0, 0.0, 0.0]
+
+[grid]
+nxg = 16
+nyg = 16
+nzg = 16
+xmax = 1.0
+ymax = 1.0
+zmax = 1.0
+
+[geometry]
+geom_name = "scat_test"
+tau = 3.0
+
+[output]
+fluence = "fluence.nrrd"
+overwrite = true
+
+[simulation]
+iseed = 99
+load_checkpoint = {load}
+checkpoint_file = "{ckpt}"
+checkpoint_every_n = 1000000
+"""
+
+
+def phase_checkpoint(dev, tmp, card):
+    """tests/test_checkpoint_resume.py's run on the card: 1,800 of 3,000
+    photons checkpointed with ``kernels.checkpoint_now``, the resume
+    launches the other 1,200, the merged fluence is above the partial one
+    and within 10% of a full run; then ``write_checkpoint_full`` /
+    ``read_checkpoint_full`` round-trip the run's tallies with
+    res/test_dects.toml's detector bank."""
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.io import writer
+
+    ckpt = tmp / "check.ckpt"
+    cfg1, cfg2 = tmp / "ckpt_first.toml", tmp / "ckpt_resume.toml"
+    cfg1.write_text(CKPT_CFG.format(n=3000, load="false", ckpt=ckpt))
+    cfg2.write_text(CKPT_CFG.format(n=3000, load="true", ckpt=ckpt))
+    t0 = time.perf_counter()
+    # 2,048 lanes: at 1,024 or fewer ``simulate`` runs chunks of 128
+    # megasteps, whether or not the photons are done
+    full = kernels.default_MCRT(cfg1, data_dir=tmp / "ckpt_full",
+                                n_lanes=2048, verbose=False, device=dev)
+    part = kernels.run_MCRT(*kernels.setup(cfg1, device=dev),
+                            nphotons=1800, n_lanes=2048)
+    kernels.checkpoint_now(cfg1, part)
+    resumed = kernels.default_MCRT(cfg2, data_dir=tmp / "ckpt_res",
+                                   n_lanes=2048, verbose=False, device=dev)
+    merged = float(resumed.tallies.jmean.double().sum())
+    partial = float(part.tallies.jmean.double().sum())
+    whole = float(full.tallies.jmean.double().sum())
+    log(f"[checkpoint] full {full.launched}, partial {part.launched}, "
+        f"resumed {resumed.launched}; fluence sums partial {partial:.3f}, "
+        f"merged {merged:.3f}, full {whole:.3f} (rel "
+        f"{abs(merged - whole) / whole:.4f}); "
+        f"{time.perf_counter() - t0:.2f} s [{card}]")
+    if (full.launched != 3000 or part.launched != 1800
+            or resumed.launched != 1200 or not merged > partial
+            or abs(merged - whole) / whole >= 0.1):
+        raise AssertionError("checkpoint resume")
+    parsed, _ = kernels.setup(DECTS, device=dev)
+    bank = parsed.detectors
+    for _, f in bank.families():
+        f.data.copy_(torch.rand(f.data.shape, device=dev))
+    path = tmp / "full.npz"
+    writer.write_checkpoint_full(path, str(cfg2), resumed.launched,
+                                 resumed.tallies, bank, rng_seed=99)
+    back = writer.read_checkpoint_full(path)
+    want = {"toml", "photons_run", "jmean", "absorb", "emission", "nscatt",
+            "rng_seed"} | {f"dect_{fam}" for fam, _ in bank.families()}
+    if set(back) != want or int(back["photons_run"]) != 1200:
+        raise AssertionError(f"npz keys {sorted(back)}")
+    for k in ("jmean", "absorb", "emission", "nscatt"):
+        if not np.array_equal(back[k],
+                              getattr(resumed.tallies, k).cpu().numpy()):
+            raise AssertionError(f"npz {k} differs")
+    for fam, f in bank.families():
+        if not np.array_equal(back[f"dect_{fam}"], f.data.cpu().numpy()):
+            raise AssertionError(f"npz dect_{fam} differs")
+    log(f"[checkpoint] npz round trip: {sorted(back)} [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -1763,6 +2231,8 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     deposit = phase_kernel(dev, card)
+    extra = phase_kernel_f64_gather(dev, card,
+                                    deposit["capture_jmean"]["inputs"])
     signed = phase_signed(dev, card)
     window = phase_window(dev, card)
     window_launches = phase_window_path(dev, card)
@@ -1788,6 +2258,9 @@ def main() -> int:
             phase_plain_card_vs_cpu(dev, tmp, card, children[1])
             launches += phase_escape(dev, tmp, card)
             launches += phase_inverse(dev, tmp, card)
+            gather_launches = phase_gradient(dev, card)
+            f64_launches = phase_f64(dev, card)
+            phase_checkpoint(dev, tmp, card)
         finally:
             for child in children:
                 child[0].kill()
@@ -1820,6 +2293,32 @@ def main() -> int:
         "bound_ms": tool["bound_ms"],
         "bound_by": "bytes",
         "library_ms": tool["library_ms"],
+    }, {
+        "name": "deposit_add_f64",
+        "route": "cuda",
+        "source": "rsmcrt_tpu_torch/csrc/deposit.cu",
+        "replaces": "rsmcrt_tpu/transport/deposit.py:47",
+        "launches": f64_launches,
+        "max_abs_err": extra["f64_capture_jmean"]["err"],
+        "ms": extra["f64_capture_jmean"]["ms"],
+        "plain_ms": extra["f64_capture_jmean"]["plain_ms"],
+        "bound_ms": extra["f64_capture_jmean"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": extra["f64_capture_jmean"]["library_ms"],
+    }, {
+        "name": "deposit_gather",
+        "route": "cuda",
+        "source": "rsmcrt_tpu_torch/csrc/deposit.cu",
+        # the transpose of that kernel's sum (the reference's gradient
+        # is XLA's scatter-add transpose)
+        "replaces": "rsmcrt_tpu/transport/deposit.py:47",
+        "launches": gather_launches,
+        "max_abs_err": extra["gather"]["err"],
+        "ms": extra["gather"]["ms"],
+        "plain_ms": extra["gather"]["plain_ms"],
+        "bound_ms": extra["gather"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": extra["gather"]["library_ms"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,10 @@ The forward run (chained walk with or without the fluence estimator,
 analytic sphere and box prims, point and pencil sources, detector banks)
 runs in eager PyTorch; voxel tallies are accumulated by hand-written CUDA
 deposit kernels (``transport/deposit.py`` and ``csrc/*.cu``) on CUDA
-tensors and by their plain PyTorch twins on CPU tensors.  Entry points run
+tensors and by their plain PyTorch twins on CPU tensors.  The megastep is
+differentiable through ``torch.autograd`` (the deposit kernel's backward
+is a hand-written gather) and runs in float64 when its scene is built in
+float64.  Entry points run
 on the card unless the caller asks for the CPU.  Module paths and public
 names mirror ``rsmcrt_tpu``, which stays the reference the port is tested
 against.  This package never imports ``jax`` or ``rsmcrt_tpu``.

@@ -1,6 +1,7 @@
 """Physical and numerical constants (port of ``rsmcrt_tpu/constants.py``).
 
-Transport runs in float32 throughout, like the reference package.
+Transport runs in float32 unless the scene is built in float64, like the
+reference package (``transport.engine``: a run's type is its scene's).
 """
 
 from __future__ import annotations

@@ -4,7 +4,10 @@ Each ``*_from_numpy`` takes an ``rsmcrt_tpu`` object after
 ``jax.tree_util.tree_map(np.asarray, obj)`` -- so every array leaf is a
 NumPy array -- reads it by attribute only, and returns this package's
 object on ``device``.  :func:`carry_to_numpy` goes the other way, for
-comparison.  Nothing here imports ``jax`` or ``rsmcrt_tpu``.
+comparison.  Float types carry across: a float64 array stays float64, and
+a scene, grid or source built in float64 (the reference under
+``jax_enable_x64``) becomes a float64 one here.  Nothing here imports
+``jax`` or ``rsmcrt_tpu``.
 """
 
 from __future__ import annotations
@@ -29,15 +32,23 @@ def _t(a, device):
     return torch.as_tensor(np.array(a, copy=True), device=device)
 
 
+def _float_type(*arrays):
+    """float64 when any of ``arrays`` is a float64 array, else float32."""
+    f64 = any(np.asarray(a).dtype == np.float64 for a in arrays)
+    return torch.float64 if f64 else torch.float32
+
+
 def grid_from_numpy(g, device="cpu") -> CartGrid:
     return CartGrid(float(np.asarray(g.xmax)), float(np.asarray(g.ymax)),
                     float(np.asarray(g.zmax)), int(g.nxg), int(g.nyg),
-                    int(g.nzg), device=device)
+                    int(g.nzg), device=device,
+                    dtype=_float_type(g.xmax, g.ymax, g.zmax))
 
 
 def cyl_grid_from_numpy(g) -> CylGrid:
     return CylGrid(float(np.asarray(g.rmax)), float(np.asarray(g.zmax)),
-                   int(g.nrg), int(g.ntg), int(g.nzg))
+                   int(g.nrg), int(g.ntg), int(g.nzg),
+                   dtype=_float_type(g.rmax, g.zmax))
 
 
 def settings_from_numpy(st, device="cpu") -> Settings:
@@ -58,8 +69,9 @@ def settings_from_numpy(st, device="cpu") -> Settings:
     return out
 
 
-def _spec_from_numpy(sp, device, disp_funcs) -> PrimSpec:
-    """This package's spec tree for a reference ``PrimSpec`` tree."""
+def _spec_from_numpy(sp, device, disp_funcs, dtype) -> PrimSpec:
+    """This package's spec tree for a reference ``PrimSpec`` tree, its
+    parameters in ``dtype``."""
     twin = None
     if sp.disp_func is not None:
         twin = (disp_funcs or {}).get(sp.disp_func)
@@ -67,11 +79,11 @@ def _spec_from_numpy(sp, device, disp_funcs) -> PrimSpec:
             raise NotImplementedError(
                 "a displacement modifier's JAX callable cannot run in "
                 "PyTorch: pass its PyTorch twin in disp_funcs")
-    params = {k: _vector_param(sp.kind, k, _t(v, device).to(torch.float32),
+    params = {k: _vector_param(sp.kind, k, _t(v, device).to(dtype),
                                np.ndim(v))
               for k, v in sp.params.items()}
     return PrimSpec(sp.kind, params,
-                    children=[_spec_from_numpy(c, device, disp_funcs)
+                    children=[_spec_from_numpy(c, device, disp_funcs, dtype)
                               for c in sp.children],
                     layer=sp.layer, op=sp.op, disp_func=twin)
 
@@ -85,16 +97,16 @@ def _vector_param(kind, key, t, own_ndim):
     return t
 
 
-def _group_params_from_numpy(spec, sp_ref, gp, device):
+def _group_params_from_numpy(spec, sp_ref, gp, device, dtype):
     out = {}
     for k, v in gp.items():
         if k.startswith("child") and k[5:].isdigit():
             i = int(k[5:])
             out[k] = _group_params_from_numpy(spec.children[i],
-                                              sp_ref.children[i], v, device)
+                                              sp_ref.children[i], v, device,
+                                              dtype)
         else:
-            out[k] = _vector_param(spec.kind, k,
-                                   _t(v, device).to(torch.float32),
+            out[k] = _vector_param(spec.kind, k, _t(v, device).to(dtype),
                                    np.ndim(sp_ref.params[k]))
     return out
 
@@ -105,12 +117,14 @@ def scene_from_numpy(s, device="cpu", disp_funcs=None) -> Scene:
     ``ray_bound_idx`` and ``surface_normal``) agree.  Nested specs
     (modifiers, CSG models) carry over with their ``child{i}`` parameter
     trees; a displacement modifier needs ``disp_funcs``, a map from the
-    reference's JAX callable to its PyTorch twin."""
-    specs = tuple(_spec_from_numpy(sp, device, disp_funcs)
-                  for sp in s.specs)
-    group_params = [_group_params_from_numpy(sp, ref, gp, device)
-                    for sp, ref, gp in zip(specs, s.specs, s.group_params)]
+    reference's JAX callable to its PyTorch twin.  The scene's type is
+    its tables' (float64 for a reference scene built in float64)."""
     tb = s.tables
+    dtype = _float_type(tb.mus)
+    specs = tuple(_spec_from_numpy(sp, device, disp_funcs, dtype)
+                  for sp in s.specs)
+    group_params = [_group_params_from_numpy(sp, ref, gp, device, dtype)
+                    for sp, ref, gp in zip(specs, s.specs, s.group_params)]
     wl = getattr(tb, "wavelengths", None)
     tables = SceneTables(mus=_t(tb.mus, device), mua=_t(tb.mua, device),
                          hgg=_t(tb.hgg, device), n=_t(tb.n, device),
@@ -120,14 +134,14 @@ def scene_from_numpy(s, device="cpu", disp_funcs=None) -> Scene:
                  layer_ids=tuple(s.layer_ids), n_prims=int(s.n_prims))
 
 
-def spectrum_from_numpy(sp, device="cpu"):
+def spectrum_from_numpy(sp, device="cpu", dtype=torch.float32):
     """A ``Constant``, ``Piecewise1D`` or ``Piecewise2D`` (or None), told
-    apart by the reference object's fields."""
+    apart by the reference object's fields, in ``dtype``."""
     if sp is None:
         return None
 
     def f(a):
-        return _t(a, device).to(torch.float32)
+        return _t(a, device).to(dtype)
 
     if hasattr(sp, "value"):
         return Constant(f(sp.value))
@@ -140,9 +154,12 @@ def spectrum_from_numpy(sp, device="cpu"):
 
 
 def source_from_numpy(src, device="cpu") -> Source:
-    return Source(kind=src.kind,
-                  params={k: _t(v, device) for k, v in src.params.items()},
-                  spectrum=spectrum_from_numpy(src.spectrum, device),
+    """The source in its parameters' type (float64 for a reference source
+    built in float64), its spectrum too."""
+    params = {k: _t(v, device) for k, v in src.params.items()}
+    dtype = _float_type(*src.params.values())
+    return Source(kind=src.kind, params=params,
+                  spectrum=spectrum_from_numpy(src.spectrum, device, dtype),
                   subtype=src.subtype)
 
 

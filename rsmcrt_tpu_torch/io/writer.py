@@ -1,7 +1,7 @@
-"""Output writers: NRRD volumes, raw dumps, detector dumps and
-reference-format checkpoints (port of ``rsmcrt_tpu/io/writer.py``;
-reference: src/writer.f90).  NumPy only.  The npz checkpoint is still to
-port (ROADMAP queue 1, item 2)."""
+"""Output writers: NRRD volumes, raw dumps, detector dumps, the
+reference-format checkpoint and the npz checkpoint of every tally and
+detector bin (port of ``rsmcrt_tpu/io/writer.py``; reference:
+src/writer.f90).  NumPy only; tensors are copied to the host."""
 
 from __future__ import annotations
 
@@ -115,6 +115,47 @@ def read_checkpoint(filename: str | Path, shape):
     return toml_filename, nphotons_run, jmean
 
 
+def _host(x):
+    """A tensor (on any device, in a graph or not) or an array as NumPy."""
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def write_checkpoint_full(filename: str | Path, toml_filename: str,
+                          nphotons_run: int, tallies, bank=None,
+                          rng_seed: int | None = None):
+    """Extended npz checkpoint carrying all tallies + detector bins (the
+    reference package's ``write_checkpoint_full``, key for key: ``toml``,
+    ``photons_run``, ``jmean``, ``absorb``, ``emission``, ``nscatt``,
+    ``rng_seed`` when given and ``dect_circle|annulus|fibre|camera`` for
+    each family of ``bank``).  The tallies keep their type (float32, or
+    float64 from a float64 run) and flat shape."""
+    payload = dict(
+        toml=np.asarray(toml_filename),
+        photons_run=np.asarray(nphotons_run),
+        jmean=_host(tallies.jmean),
+        absorb=_host(tallies.absorb),
+        emission=_host(tallies.emission),
+        nscatt=_host(tallies.nscatt),
+    )
+    if rng_seed is not None:
+        payload["rng_seed"] = np.asarray(rng_seed)
+    if bank is not None:
+        for fam in ("circle", "annulus", "fibre", "camera"):
+            f = getattr(bank, fam)
+            if f is not None:
+                payload[f"dect_{fam}"] = _host(f.data)
+    np.savez(filename, **payload)
+
+
+def read_checkpoint_full(filename: str | Path) -> dict:
+    """Every array of an npz checkpoint by key (as the reference package
+    reads it)."""
+    with np.load(filename, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
 def write_detected_photons(bank, nphotons: int, out_dir: str | Path):
     """Binary per-detector dumps (reference: writer.f90:55-134), byte for
     byte the reference package's format: a little-endian float64 stream;
@@ -123,10 +164,6 @@ def write_detected_photons(bank, nphotons: int, out_dir: str | Path):
     pairs, or for the camera its 2D grid."""
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-
-    def host(x):
-        return np.asarray(x.detach().cpu().numpy())
-
     for i, (fam, member) in enumerate(bank.order):
         d = getattr(bank, fam)
         dect_id = bank.ids[i]
@@ -142,24 +179,24 @@ def write_detected_photons(bank, nphotons: int, out_dir: str | Path):
                 w(ord(ch))
             if fam == "camera":
                 w(nphotons)
-                host(d.data[member]).astype(np.float64).tofile(fh)
+                _host(d.data[member]).astype(np.float64).tofile(fh)
                 continue
             if fam == "circle":
-                w(nphotons, host(d.radius[member]))
+                w(nphotons, _host(d.radius[member]))
             elif fam == "annulus":
-                w(nphotons, host(d.r1[member]), host(d.r2[member]))
+                w(nphotons, _host(d.r1[member]), _host(d.r2[member]))
             else:
                 w(nphotons)
-            w(*host(d.pos[member]))
-            w(*host(d.dir[member]))
+            w(*_host(d.pos[member]))
+            w(*_host(d.dir[member]))
             if fam == "fibre":
-                w(*(host(getattr(d, k)[member]) for k in (
+                w(*(_host(getattr(d, k)[member]) for k in (
                     "focalLength1", "focalLength2", "f1Aperture",
                     "f2Aperture", "frontOffset", "backOffset",
                     "frontToPinSep", "pinToBackSep", "pinAperture",
                     "acceptAngle", "coreDiameter")))
-            data = host(d.data[member])
-            bw = float(host(d.bin_wid[member]))
-            r0 = float(host(d.r1[member])) if fam == "annulus" else 0.0
+            data = _host(d.data[member])
+            bw = float(_host(d.bin_wid[member]))
+            r0 = float(_host(d.r1[member])) if fam == "annulus" else 0.0
             for j, val in enumerate(data):
                 w((j + 0.5) * bw + r0, val)

@@ -6,6 +6,13 @@ kernel; reference: src/kernelsMod.f90 default_MCRT :14, test_kernel
 those kernels live in :mod:`rsmcrt_tpu_torch.escape` and
 :mod:`rsmcrt_tpu_torch.inverse`.
 
+Checkpoints: :func:`run_MCRT` writes the reference-format checkpoint
+(``[simulation] checkpoint_file``) every ``checkpoint_every_n`` photons,
+:func:`checkpoint_now` writes one on demand, and :func:`default_MCRT`
+resumes from one (``load_checkpoint = true``).  The npz checkpoint of
+every tally and detector bin is
+:func:`~rsmcrt_tpu_torch.io.writer.write_checkpoint_full`.
+
 The live tev viewer is still to port (ROADMAP queue 1, item 4) and
 raises ``NotImplementedError``.
 """
@@ -313,6 +320,19 @@ def default_MCRT(input_file: str | Path, data_dir="data", nphotons=None,
         write_data(img, Path(data_dir) / st.rendergeomfile, overwrite=True)
     finalise(result, data_dir=data_dir, verbose=verbose)
     return result
+
+
+def checkpoint_now(input_file, result: SimResult, data_dir="data"):
+    """Write a reference-format checkpoint of ``result`` (its photons
+    launched and its fluence volume) to the config's ``checkpoint_file``
+    (reference: writer.f90:426-457; the reference package's
+    ``kernels.checkpoint_now``).  ``data_dir`` is accepted for parity and
+    not used, as there."""
+    del data_dir
+    st = result.parsed.settings
+    return write_checkpoint(
+        str(input_file), st.ckptfile, result.launched,
+        as_volume(st.grid, result.tallies.jmean).detach().cpu().numpy())
 
 
 def test_kernel(input_file: str | Path, end_early: bool = True,

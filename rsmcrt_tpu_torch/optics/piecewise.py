@@ -9,7 +9,8 @@ reference: src/opticalProps/piecewise.f90).
   same statistics).
 
 The CDFs are built on the host in float64 and stored as float32 tensors,
-as the JAX package stores them.  Every sampler takes a batch of uniforms
+as the JAX package stores them; ``.to(device, dtype)`` gives a float64
+run's copy.  Every sampler takes a batch of uniforms
 ``[B]`` and searches the CDF with ``torch.searchsorted``.
 """
 
@@ -25,6 +26,9 @@ import torch
 class Constant:
     value: torch.Tensor  # 0-d float32
 
+    def to(self, device, dtype=None) -> "Constant":
+        return Constant(self.value.to(device, dtype))
+
 
 @dataclass
 class Piecewise1D:
@@ -34,9 +38,9 @@ class Piecewise1D:
     y: torch.Tensor  # [n]
     cdf: torch.Tensor  # [n], cdf[0] = 0, cdf[-1] = 1
 
-    def to(self, device) -> "Piecewise1D":
-        return Piecewise1D(self.x.to(device), self.y.to(device),
-                           self.cdf.to(device))
+    def to(self, device, dtype=None) -> "Piecewise1D":
+        return Piecewise1D(self.x.to(device, dtype), self.y.to(device, dtype),
+                           self.cdf.to(device, dtype))
 
 
 @dataclass
@@ -49,10 +53,10 @@ class Piecewise2D:
     cell_width: torch.Tensor  # 0-d float32
     cell_height: torch.Tensor
 
-    def to(self, device) -> "Piecewise2D":
-        return Piecewise2D(self.cdf.to(device), self.width, self.height,
-                           self.cell_width.to(device),
-                           self.cell_height.to(device))
+    def to(self, device, dtype=None) -> "Piecewise2D":
+        return Piecewise2D(self.cdf.to(device, dtype), self.width,
+                           self.height, self.cell_width.to(device, dtype),
+                           self.cell_height.to(device, dtype))
 
 
 def _trapz_cdf(x: np.ndarray, y: np.ndarray) -> np.ndarray:

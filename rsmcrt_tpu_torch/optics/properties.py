@@ -10,15 +10,18 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ..grid import f32
+import torch
+
+from ..grid import as_dtype
 from .piecewise import Piecewise1D, sample_piecewise1d_at
 
 
 @dataclass
 class OptProps:
     """Monochromatic optical properties (reference ``mono`` type); values
-    are float32-rounded Python floats (tensors from
-    :meth:`SpectralOptProps.at_wavelength`)."""
+    are Python floats rounded to the ``dtype`` :func:`mono` was given, or
+    tensors (from :meth:`SpectralOptProps.at_wavelength`, or a caller's,
+    which may require a gradient)."""
 
     mus: float
     mua: float
@@ -26,8 +29,13 @@ class OptProps:
     n: float
 
 
-def mono(mus, mua, hgg, n) -> OptProps:
-    return OptProps(f32(mus), f32(mua), f32(hgg), f32(n))
+def mono(mus, mua, hgg, n, dtype=torch.float32) -> OptProps:
+    """Each value rounded to ``dtype`` (float32 or float64), as the
+    reference's ``jnp.asarray(v, dtype)``; a tensor is kept as it is."""
+    def r(v):
+        return v if isinstance(v, torch.Tensor) else as_dtype(v, dtype)
+
+    return OptProps(r(mus), r(mua), r(hgg), r(n))
 
 
 @dataclass

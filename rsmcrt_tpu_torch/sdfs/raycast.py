@@ -23,7 +23,7 @@ import torch
 
 from ..maths.transforms import apply_rotation, apply_transform
 from . import primitives as sdp
-from .scene import eval_spec, tree_map
+from .scene import _leaves, eval_spec, tree_map
 
 _INF = torch.inf
 
@@ -190,13 +190,30 @@ def ray_cone(p, d, a, b, ra, rb):
                       _cap(u_m, u_d, mp, dp, 1.0, rb))
 
 
-def _value_and_slope(sd_fn, p, d, t):
+def _needs_graph(*tensors) -> bool:
+    """Whether a derivative taken inside the forward must itself be
+    differentiable: grad mode is on and an input requires a gradient (the
+    reference's ``jax.jvp`` slope and ``jax.grad`` normal are
+    differentiated through by an outer ``jax.grad``).  Outside that case
+    the inner derivative is a constant and keeps no graph."""
+    return torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad for x in tensors)
+
+
+def _value_and_slope(sd_fn, p, d, t, params=()):
     """``sd_fn(p + t d)`` and its derivative in ``t``, the reference's
     ``jax.jvp``, taken in reverse mode: each element of ``t`` moves its
     own element of the result only, so the gradient of the sum is the
     elementwise slope.  (Forward-mode dual tensors broadcast against the
     prim parameters through PyTorch's Python reference kernels, which
-    are far slower.)"""
+    are far slower.)  When ``p``, ``d``, ``t`` or a tensor of ``params``
+    (what ``sd_fn`` closes over) requires a gradient under grad mode, the
+    value and the slope stay in the graph (``create_graph``)."""
+    if _needs_graph(p, d, t, *params):
+        s = t if t.requires_grad else t.detach().requires_grad_(True)
+        f = sd_fn(p + s[..., None] * d)
+        (fp,) = torch.autograd.grad(f.sum(), s, create_graph=True)
+        return f, fp
     with torch.enable_grad():
         s = t.detach().requires_grad_(True)
         f = sd_fn(p + s[..., None] * d)
@@ -204,7 +221,7 @@ def _value_and_slope(sd_fn, p, d, t):
     return f.detach(), fp
 
 
-def _newton_polish(sd_fn, p, d, t, iters=2, scale=1.0):
+def _newton_polish(sd_fn, p, d, t, iters=2, scale=1.0, params=()):
     """Refine root candidates ``t`` of ``sd_fn(p + t d) = 0`` with Newton
     steps.  Invalid (inf) lanes pass through untouched; steps are clamped
     to ``0.05 * scale`` so a polish never jumps to another sheet."""
@@ -212,7 +229,7 @@ def _newton_polish(sd_fn, p, d, t, iters=2, scale=1.0):
     tf = torch.where(fin, t, 0.0)
     clamp = 0.05 * scale
     for _ in range(iters):
-        f, fp = _value_and_slope(sd_fn, p, d, tf)
+        f, fp = _value_and_slope(sd_fn, p, d, tf, params)
         step = f / torch.where(torch.abs(fp) < 1e-8,
                                torch.sign(fp) * 1e-8 + 1e-12, fp)
         tf = tf - torch.minimum(torch.maximum(step, -clamp), clamp)
@@ -220,7 +237,7 @@ def _newton_polish(sd_fn, p, d, t, iters=2, scale=1.0):
 
 
 def _validated_first(sd_fn, p, d, cands, tol=2e-3, t_min=1e-5, iters=2,
-                     scale=1.0):
+                     scale=1.0, params=()):
     """Newton-polish each candidate and keep the first strictly positive
     one that lies on the surface (``|sd| < tol * scale``): f32 quartic
     roots carry O(1e-2) error; validation discards spurious and
@@ -228,7 +245,8 @@ def _validated_first(sd_fn, p, d, cands, tol=2e-3, t_min=1e-5, iters=2,
     best = torch.full(p.shape[:-1], _INF, dtype=p.dtype, device=p.device)
     tol = tol * scale
     for t in cands:
-        t = _newton_polish(sd_fn, p, d, t, iters=iters, scale=scale)
+        t = _newton_polish(sd_fn, p, d, t, iters=iters, scale=scale,
+                           params=params)
         sd_at = sd_fn(p + t[..., None] * d)
         ok = torch.isfinite(t) & (t > t_min) & (torch.abs(sd_at) < tol)
         best = torch.minimum(best, torch.where(ok, t, _INF))
@@ -327,7 +345,8 @@ def ray_torus(p, d, oradius, iradius):
     o = p + t0[..., None] * d
     near = torch.sum(o * o, dim=-1) <= (1.5 * scale) ** 2
     cands = _torus_quartic_cands(p, d, oradius * oradius, iradius)
-    t = _validated_first(sd_fn, p, d, cands, scale=scale)
+    t = _validated_first(sd_fn, p, d, cands, scale=scale,
+                         params=(oradius, iradius))
     return torch.where(near, t, _INF)
 
 
@@ -392,8 +411,11 @@ def ray_egg_revolution(p, d, center, o, r1, r2, h):
     Rs = o - el
     cands_q = _torus_quartic_cands(pc, d, Rs * Rs, r1 + el)
     scale = r1 + torch.abs(o)  # characteristic size for tol/clamp
-    t_sph = _validated_first(sd_fn, p, d, cands_sph, iters=1, scale=scale)
-    t_q = _validated_first(sd_fn, p, d, cands_q, iters=2, scale=scale)
+    prm = (center, o, r1, r2, h)
+    t_sph = _validated_first(sd_fn, p, d, cands_sph, iters=1, scale=scale,
+                             params=prm)
+    t_q = _validated_first(sd_fn, p, d, cands_q, iters=2, scale=scale,
+                           params=prm)
     return torch.minimum(t_sph, t_q)
 
 
@@ -495,7 +517,15 @@ def ray_bound_idx(scene, pos, dirn):
 def _autograd_normal(spec, prm, pos):
     """Gradient of the spec's SDF at ``pos`` by autograd (each lane's
     distance depends on its own position only, so the gradient of the sum
-    is the per-lane gradient)."""
+    is the per-lane gradient).  Under grad mode with ``pos`` or a
+    parameter requiring a gradient, the normal stays in the graph
+    (``create_graph``), as the reference's ``jax.grad`` normal is
+    differentiated through."""
+    if _needs_graph(pos, *_leaves(prm)):
+        p = pos if pos.requires_grad else pos.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(eval_spec(spec, prm, p).sum(), p,
+                                   create_graph=True)
+        return g
     with torch.enable_grad():
         p = pos.detach().requires_grad_(True)
         (g,) = torch.autograd.grad(eval_spec(spec, prm, p).sum(), p)

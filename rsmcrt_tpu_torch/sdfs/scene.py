@@ -22,6 +22,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..grid import np_dtype
 from ..maths.transforms import apply_transform, identity
 from ..optics.piecewise import sample_piecewise1d_at
 from ..optics.properties import OptProps, SpectralOptProps
@@ -67,8 +68,9 @@ VECTOR_PARAMS = {"elongate": ("size",), "repeat": ("c", "la", "lb"),
 
 class PrimSpec:
     """One node of a scene: a primitive, a modifier wrapping a child, or a
-    CSG model combining children.  ``params`` are float32 tensors (a
-    primitive's include its inverse world ``transform``); ``disp_func``
+    CSG model combining children.  ``params`` are float tensors of the
+    builder's ``dtype`` (a primitive's include its inverse world
+    ``transform``); ``disp_func``
     is the displacement modifier's PyTorch callable ``pos [..., 3] ->
     [...]``."""
 
@@ -91,76 +93,93 @@ class PrimSpec:
                 tuple(c.signature() for c in self.children))
 
 
-def _as_t(v, device):
-    """A float32 copy of ``v`` (a number, a sequence, an array or a tensor
-    on any device) on ``device``."""
+def _as_t(v, device, dtype=torch.float32):
+    """A ``dtype`` copy of ``v`` (a number, a sequence, an array or a
+    tensor on any device) on ``device``.  A tensor is copied with
+    ``Tensor.to``, so one that requires a gradient stays in the graph."""
     if isinstance(v, torch.Tensor):
-        return v.detach().to(device=device, dtype=torch.float32, copy=True)
-    return torch.as_tensor(np.array(v, np.float32), device=device)
+        return v.to(device=device, dtype=dtype, copy=True)
+    return torch.as_tensor(np.array(v, np_dtype(dtype)), device=device)
 
 
-def _prim(kind, layer, opt, transform, device, **params) -> PrimSpec:
-    t = (identity(torch.float32, device) if transform is None
-         else _as_t(transform, device))
-    p = {k: _as_t(v, device) for k, v in params.items()}
+def _prim(kind, layer, opt, transform, device, dtype, **params) -> PrimSpec:
+    t = (identity(dtype, device) if transform is None
+         else _as_t(transform, device, dtype))
+    p = {k: _as_t(v, device, dtype) for k, v in params.items()}
     p["transform"] = t
     return PrimSpec(kind, p, layer=layer, opt=opt)
 
 
 # -- constructor API mirroring the reference init functions ------------------
 
-def sphere(radius, opt, layer, transform=None, device="cpu"):
-    return _prim("sphere", layer, opt, transform, device, radius=radius)
+def sphere(radius, opt, layer, transform=None, device="cpu",
+           dtype=torch.float32):
+    return _prim("sphere", layer, opt, transform, device, dtype, radius=radius)
 
 
-def box(lengths, opt, layer, transform=None, device="cpu"):
+def box(lengths, opt, layer, transform=None, device="cpu",
+        dtype=torch.float32):
     """``lengths`` are full extents; halved at init like the reference
     (src/sdfs/sdfs.f90:455)."""
-    half = 0.5 * np.asarray(lengths, dtype=np.float64)
-    return _prim("box", layer, opt, transform, device, half_lengths=half)
+    half = (0.5 * lengths if isinstance(lengths, torch.Tensor)
+            else 0.5 * np.asarray(lengths, dtype=np.float64))
+    return _prim("box", layer, opt, transform, device, dtype,
+                 half_lengths=half)
 
 
-def torus(oradius, iradius, opt, layer, transform=None, device="cpu"):
-    return _prim("torus", layer, opt, transform, device, oradius=oradius,
-                 iradius=iradius)
+def torus(oradius, iradius, opt, layer, transform=None, device="cpu",
+          dtype=torch.float32):
+    return _prim("torus", layer, opt, transform, device, dtype,
+                 oradius=oradius, iradius=iradius)
 
 
-def cylinder(a, b, radius, opt, layer, transform=None, device="cpu"):
-    return _prim("cylinder", layer, opt, transform, device, a=a, b=b,
+def cylinder(a, b, radius, opt, layer, transform=None, device="cpu",
+             dtype=torch.float32):
+    return _prim("cylinder", layer, opt, transform, device, dtype, a=a, b=b,
                  radius=radius)
 
 
-def triprism(h1, h2, opt, layer, transform=None, device="cpu"):
-    return _prim("triprism", layer, opt, transform, device, h1=h1, h2=h2)
+def triprism(h1, h2, opt, layer, transform=None, device="cpu",
+             dtype=torch.float32):
+    return _prim("triprism", layer, opt, transform, device, dtype, h1=h1,
+                 h2=h2)
 
 
-def segment(a, b, opt, layer, transform=None, device="cpu"):
-    return _prim("segment", layer, opt, transform, device, a=a, b=b)
+def segment(a, b, opt, layer, transform=None, device="cpu",
+            dtype=torch.float32):
+    return _prim("segment", layer, opt, transform, device, dtype, a=a, b=b)
 
 
-def capsule(a, b, r, opt, layer, transform=None, device="cpu"):
-    return _prim("capsule", layer, opt, transform, device, a=a, b=b, r=r)
+def capsule(a, b, r, opt, layer, transform=None, device="cpu",
+            dtype=torch.float32):
+    return _prim("capsule", layer, opt, transform, device, dtype, a=a, b=b,
+                 r=r)
 
 
-def cone(a, b, ra, rb, opt, layer, transform=None, device="cpu"):
-    return _prim("cone", layer, opt, transform, device, a=a, b=b, ra=ra,
+def cone(a, b, ra, rb, opt, layer, transform=None, device="cpu",
+         dtype=torch.float32):
+    return _prim("cone", layer, opt, transform, device, dtype, a=a, b=b, ra=ra,
                  rb=rb)
 
 
-def egg(r1, r2, h, opt, layer, transform=None, device="cpu"):
-    return _prim("egg", layer, opt, transform, device, r1=r1, r2=r2, h=h)
+def egg(r1, r2, h, opt, layer, transform=None, device="cpu",
+        dtype=torch.float32):
+    return _prim("egg", layer, opt, transform, device, dtype, r1=r1, r2=r2,
+                 h=h)
 
 
-def plane(a, opt, layer, transform=None, device="cpu"):
-    return _prim("plane", layer, opt, transform, device, a=a)
+def plane(a, opt, layer, transform=None, device="cpu",
+          dtype=torch.float32):
+    return _prim("plane", layer, opt, transform, device, dtype, a=a)
 
 
 # -- modifiers (reference: src/sdfs/sdfModifiers.f90) ------------------------
 
-def _modifier(kind, child: PrimSpec, device="cpu", **params) -> PrimSpec:
+def _modifier(kind, child: PrimSpec, device="cpu", dtype=torch.float32,
+              **params) -> PrimSpec:
     p = {}
     for k, v in params.items():
-        t = _as_t(v, device)
+        t = _as_t(v, device, dtype)
         if k in VECTOR_PARAMS.get(kind, ()):
             t = torch.broadcast_to(t, (3,)).clone()
         p[k] = t
@@ -168,52 +187,53 @@ def _modifier(kind, child: PrimSpec, device="cpu", **params) -> PrimSpec:
                     opt=child.opt)
 
 
-def revolution(child, o, center=(0.0, 0.0, 0.0), device="cpu"):
-    return _modifier("revolution", child, device, o=o, center=center)
+def revolution(child, o, center=(0.0, 0.0, 0.0), device="cpu",
+               dtype=torch.float32):
+    return _modifier("revolution", child, device, dtype, o=o, center=center)
 
 
-def extrude(child, h, device="cpu"):
-    return _modifier("extrude", child, device, h=h)
+def extrude(child, h, device="cpu", dtype=torch.float32):
+    return _modifier("extrude", child, device, dtype, h=h)
 
 
-def onion(child, thickness, device="cpu"):
-    return _modifier("onion", child, device, thickness=thickness)
+def onion(child, thickness, device="cpu", dtype=torch.float32):
+    return _modifier("onion", child, device, dtype, thickness=thickness)
 
 
-def twist(child, k, device="cpu"):
-    return _modifier("twist", child, device, k=k)
+def twist(child, k, device="cpu", dtype=torch.float32):
+    return _modifier("twist", child, device, dtype, k=k)
 
 
-def bend(child, k, device="cpu"):
-    return _modifier("bend", child, device, k=k)
+def bend(child, k, device="cpu", dtype=torch.float32):
+    return _modifier("bend", child, device, dtype, k=k)
 
 
-def elongate(child, size, device="cpu"):
-    return _modifier("elongate", child, device, size=size)
+def elongate(child, size, device="cpu", dtype=torch.float32):
+    return _modifier("elongate", child, device, dtype, size=size)
 
 
-def displacement(child, func: Callable, device="cpu"):
+def displacement(child, func: Callable, device="cpu", dtype=torch.float32):
     """``func`` maps positions ``[..., 3]`` to a displacement ``[...]``
     with PyTorch operations."""
-    spec = _modifier("displacement", child, device)
+    spec = _modifier("displacement", child, device, dtype)
     spec.disp_func = func
     return spec
 
 
-def repeat(child, c, la, lb, device="cpu"):
+def repeat(child, c, la, lb, device="cpu", dtype=torch.float32):
     """Finite repetition (the standard Quilez finite-repeat formula; the
     reference declares but never implements it,
     src/sdfs/sdfModifiers.f90:410-426)."""
-    return _modifier("repeat", child, device, c=c, la=la, lb=lb)
+    return _modifier("repeat", child, device, dtype, c=c, la=la, lb=lb)
 
 
 def model(children: Sequence[PrimSpec], op: str, k: float = 0.0,
-          device="cpu"):
+          device="cpu", dtype=torch.float32):
     """CSG model folding children with ``op``
     (reference: src/sdfs/sdf_base.f90:101-161)."""
     if op not in _CSG_OPS:
         raise ValueError(f"unknown CSG op {op!r}")
-    return PrimSpec("model", {"k": _as_t(k, device)},
+    return PrimSpec("model", {"k": _as_t(k, device, dtype)},
                     children=list(children), layer=children[0].layer,
                     opt=children[0].opt, op=op)
 
@@ -332,19 +352,22 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def _tree_stack(trees, device):
+def _tree_stack(trees, device, dtype):
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _tree_stack([t[k] for t in trees], device) for k in first}
-    return torch.stack([t.to(device, torch.float32) for t in trees])
+        return {k: _tree_stack([t[k] for t in trees], device, dtype)
+                for k in first}
+    return torch.stack([t.to(device, dtype) for t in trees])
 
 
 @dataclass
 class SceneTables:
     """Per-layer optical property tables, index 0 = outside: ``[N+1]`` for
     a monochromatic scene, ``[W, N+1]`` over ``wavelengths [W]`` for a
-    spectral one.  ``kappa`` and ``albedo`` are derived once, in float32,
-    as the reference derives them."""
+    spectral one.  ``kappa`` and ``albedo`` are derived once, in the
+    tables' type, as the reference derives them (and again by
+    ``dataclasses.replace``, so a ``mua`` that requires a gradient carries
+    it into both)."""
 
     mus: torch.Tensor
     mua: torch.Tensor
@@ -389,11 +412,14 @@ class Scene:
 
 
 def build_scene(prims: Sequence[PrimSpec], device=None,
-                n_wavelength_bins: int = 64) -> Scene:
+                n_wavelength_bins: int = 64,
+                dtype=torch.float32) -> Scene:
     """Group prims by structural signature and stack their parameter
-    trees.  With any prim of :class:`SpectralOptProps`, the optical tables
-    are sampled at ``n_wavelength_bins`` wavelengths spanning every
-    spectral table (reference package: scene.py:455-490)."""
+    trees, in ``dtype`` (float32, or float64 for a float64 run: the
+    scene's type is the run's, ``simulate`` reads it from
+    ``tables.mus``).  With any prim of :class:`SpectralOptProps`, the
+    optical tables are sampled at ``n_wavelength_bins`` wavelengths
+    spanning every spectral table (reference package: scene.py:455-490)."""
     if device is None:
         device = next(iter(_leaves(collect_params(prims[0])))).device
     groups: dict = {}
@@ -409,7 +435,7 @@ def build_scene(prims: Sequence[PrimSpec], device=None,
     for sig in order:
         idxs = groups[sig]
         group_params.append(_tree_stack(
-            [collect_params(prims[i]) for i in idxs], device))
+            [collect_params(prims[i]) for i in idxs], device, dtype))
         specs.append(prims[idxs[0]])
         group_sizes.append(len(idxs))
         concat_order.extend(idxs)
@@ -433,17 +459,17 @@ def build_scene(prims: Sequence[PrimSpec], device=None,
         lo = min(float(t.x[0]) for t in tabs)
         hi = max(float(t.x[-1]) for t in tabs)
         wgrid = torch.as_tensor(np.linspace(lo, hi, n_wavelength_bins,
-                                            dtype=np.float32), device=device)
+                                            dtype=np_dtype(dtype)),
+                                device=device)
 
     def opt_field(name, sentinel):
         if wgrid is None:
             vals = [sentinel] + [getattr(pr.opt, name) for pr in prims]
-            return torch.as_tensor(np.asarray(vals, np.float32),
-                                   device=device)
+            return torch.stack([_as_t(v, device, dtype) for v in vals])
         cols = [torch.full_like(wgrid, sentinel)]
         for pr in prims:
             if isinstance(pr.opt, SpectralOptProps):
-                tab = getattr(pr.opt, name + "_tab").to(device)
+                tab = getattr(pr.opt, name + "_tab").to(device, dtype)
                 cols.append(sample_piecewise1d_at(tab, wgrid))
             else:
                 cols.append(torch.full_like(wgrid,

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..constants import TWOPI
-from ..grid import CartGrid
+from ..grid import CartGrid, np_dtype
 from ..maths import transforms as T
 from ..optics.piecewise import (Constant, Piecewise1D, Piecewise2D,
                                 sample_piecewise1d, sample_piecewise2d)
@@ -50,40 +50,46 @@ def _normalise_batch(v):
     return v / torch.where(n > 0.0, n, 1.0)
 
 
-def _f32(v):
-    return torch.as_tensor(v, dtype=torch.float32).detach().cpu()
+def _host(v, dtype):
+    """``v`` as a ``dtype`` tensor on the host (a frame is built there)."""
+    return torch.as_tensor(v, dtype=dtype).detach().cpu()
 
 
-def _circular_frame(params):
+def _circular_frame(params, dtype):
     """The circular source's launch frame (reference photon.f90:214-308):
     the mirrored branch is taken when the beam runs along x."""
-    b = _normalise(_f32(params["direction"]))
+    b = _normalise(_host(params["direction"], dtype))
     mirrored = bool(np.allclose(np.abs(b.numpy()), [1.0, 0.0, 0.0]))
-    a = _f32([0.0, 0.0, 1.0] if mirrored else [1.0, 0.0, 0.0])
+    a = _host([0.0, 0.0, 1.0] if mirrored else [1.0, 0.0, 0.0], dtype)
     t = T.rotation_align(a, b) @ T.invert(T.translate(
-        _f32(params["position"])))
+        _host(params["position"], dtype), dtype))
     return {"t": t, "dir": b, "mirrored": mirrored}
 
 
-def _focus_annulus_frame(params):
+def _focus_annulus_frame(params, dtype):
     """Frame of the focus and annulus sources (reference:
     photon.f90:436-475 / :918-957); the ``b = -a`` mirror case, where the
     Rodrigues alignment is singular, takes the mirror matrix."""
-    a = _f32([0.0, 0.0, -1.0])
-    b = _normalise(_f32(params["rotation"]))
+    a = _host([0.0, 0.0, -1.0], dtype)
+    b = _normalise(_host(params["rotation"], dtype))
     mirrored = bool(torch.dot(a, b) < -1.0 + 1e-6)
-    t_mirror = torch.diag(_f32([1.0, 1.0, -1.0, 1.0]))
+    t_mirror = torch.diag(_host([1.0, 1.0, -1.0, 1.0], dtype))
     if mirrored:
         t_dir = t_mirror
-        t = torch.eye(4)  # the reference resets t(3,3) = 1 (:469-471)
+        # the reference resets t(3,3) = 1 (:469-471)
+        t = torch.eye(4, dtype=dtype)
     else:
         t_dir = t = T.rotation_align(a, b)
-    t_pos = t @ T.invert(T.translate(-_f32(params["position"])))
+    t_pos = t @ T.invert(T.translate(-_host(params["position"], dtype),
+                                     dtype))
     return {"t_pos": t_pos, "t_dir": t_dir}
 
 
 @dataclass
 class Source:
+    """A source's kind and parameter tensors (all of one float type, the
+    run's: its frames are built in that type)."""
+
     kind: str
     params: dict = field(default_factory=dict)
     spectrum: object = None  # Constant | Piecewise1D | Piecewise2D | None
@@ -103,13 +109,15 @@ class Source:
         btype = self.subtype or "gaussian"
         if self.kind in _BEAM_TYPES and btype not in _BEAM_TYPES[self.kind]:
             raise ValueError(f"No such beam type {btype!r}")
-        dev = next(iter(self.params.values())).device if self.params \
-            else torch.device("cpu")
+        first = next(iter(self.params.values()), None)
+        dev = first.device if first is not None else torch.device("cpu")
+        dtype = (first.dtype if first is not None and first.is_floating_point()
+                 else torch.float32)
         frame = {}
         if self.kind == "circular":
-            frame = _circular_frame(self.params)
+            frame = _circular_frame(self.params, dtype)
         elif self.kind in _BEAM_TYPES:
-            frame = _focus_annulus_frame(self.params)
+            frame = _focus_annulus_frame(self.params, dtype)
         self.frame = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
                       for k, v in frame.items()}
 
@@ -123,7 +131,11 @@ def n_source_uniforms(source: Source) -> int:
     return n
 
 
-def build_source(kind: str, spectrum=None, device="cpu", **params) -> Source:
+def build_source(kind: str, spectrum=None, device="cpu",
+                 dtype=torch.float32, **params) -> Source:
+    """A source whose parameters (and spectrum) are ``dtype`` tensors on
+    ``device``: float32, or float64 for a float64 run, as the reference's
+    ``build_source(dtype=)``."""
     p = {}
     subtype = ""
     for k, v in params.items():
@@ -133,7 +145,10 @@ def build_source(kind: str, spectrum=None, device="cpu", **params) -> Source:
             # beam subtypes (focus_type / annulus_type)
             subtype = v
         else:
-            p[k] = torch.as_tensor(np.asarray(v, np.float32), device=device)
+            p[k] = torch.as_tensor(np.asarray(v, np_dtype(dtype)),
+                                   device=device)
+    if spectrum is not None and dtype != torch.float32:
+        spectrum = spectrum.to(device, dtype)
     return Source(kind=kind, params=p, spectrum=spectrum, subtype=subtype)
 
 
@@ -215,6 +230,11 @@ def sample(source: Source, grid: CartGrid, u: torch.Tensor, sid=None):
     p = {k: v.to(u.device) for k, v in source.params.items()}
     fr = source.frame
     B = u.shape[0]
+    f64 = u.dtype == torch.float64
+    # the face nudge and the walk-in margin (reference sources.py:197,
+    # :302): a float32 ulp at 1.0 is too coarse for float64's
+    shift = 7.9e-7 if f64 else 8e-6
+    walk_in = 9e-7 if f64 else 1e-5
     phase = torch.zeros((B,), dtype=u.dtype, device=u.device)
     spec = source.spectrum
     if kind == "slm":
@@ -273,12 +293,12 @@ def sample(source: Source, grid: CartGrid, u: torch.Tensor, sid=None):
                             .long()]
     elif kind == "pencil":
         # reference: photon.f90:652-710
-        pos = _edge_nudge(p["position"].expand(B, 3), grid, 8e-6)
+        pos = _edge_nudge(p["position"].expand(B, 3), grid, shift)
         direction = _normalise(p["direction"]).expand(B, 3)
     elif kind == "uniform":
         # reference: photon.f90:566-649; pos = p1 + rx*p2 + ry*p3
         pos = p["point1"] + u[:, 0:1] * p["point2"] + u[:, 1:2] * p["point3"]
-        pos = _edge_nudge(pos, grid, 8e-6)
+        pos = _edge_nudge(pos, grid, shift)
         direction = _normalise(p["direction"]).expand(B, 3)
     elif kind == "circular":
         # reference: photon.f90:214-308
@@ -288,7 +308,7 @@ def sample(source: Source, grid: CartGrid, u: torch.Tensor, sid=None):
             torch.zeros_like(r)
         local = torch.stack([rc, rs, z] if fr["mirrored"] else [z, rc, rs],
                             dim=-1)
-        pos = _edge_nudge(-T.apply_transform(fr["t"], local), grid, 8e-6)
+        pos = _edge_nudge(-T.apply_transform(fr["t"], local), grid, shift)
         direction = fr["dir"].expand(B, 3)
     else:
         phi = TWOPI * u[:, 1]
@@ -328,5 +348,5 @@ def sample(source: Source, grid: CartGrid, u: torch.Tensor, sid=None):
         direction = _beam_direction(aim, p["focalLength"])
         direction = _normalise_batch(T.apply_rotation(fr["t_dir"], direction))
         pos = _walk_into_grid(T.apply_transform(fr["t_pos"], local),
-                              direction, grid, 1e-5)
+                              direction, grid, walk_in)
     return pos, direction, phase, wavelength

@@ -1,6 +1,7 @@
 """Tally arrays (port of ``rsmcrt_tpu/tally.py``).
 
-Tallies are float32 tensors on the run's device.  The voxel tallies
+Tallies are tensors of the run's type (float32, or float64 for a float64
+run) on the run's device.  The voxel tallies
 (``jmean``, ``absorb``, ``emission``) are flat ``[nx*ny*nz]`` and are only
 ever changed by :func:`rsmcrt_tpu_torch.transport.deposit.deposit_add_`,
 in place.  Fields of features the port does not run yet keep the
@@ -39,7 +40,9 @@ class Tallies:
 def zero_tallies(grid: CartGrid, dtype=torch.float32, escape_shape=(0, 0),
                  history_shape=(0, 1), phasor: bool = False,
                  pmc_shape=(0, 4)) -> Tallies:
-    """Zero tallies on the grid's device."""
+    """Zero tallies on the grid's device, every float tally in ``dtype``
+    (the counters ``track_count``, ``perf`` and ``track_dropped`` are
+    int32)."""
     dev = grid.device
     n = grid.n_cells
     np_ = n if phasor else 0

@@ -11,6 +11,14 @@ have a counterpart here:
   it.  On a CUDA tensor it launches ``csrc/deposit.cu``; on a CPU tensor
   it runs :func:`deposit_add_plain`.  ``signed=True`` keeps every finite
   ``val != 0`` row in place of every ``val > 0`` row (the phasor tally).
+  A float64 tally takes float64 values and the kernel's ``double``
+  instantiation (a float64 run); a float32 tally takes float32 values.
+  Under grad mode, with ``val`` requiring a gradient, the launch goes
+  through :class:`_DepositAdd`, a ``torch.autograd.Function`` whose
+  backward is the hand-written gather :func:`deposit_gather` (the
+  transpose of the sum: each kept row gets its cell's gradient);
+  otherwise it is the direct launch, so a forward run pays nothing.  On a
+  CPU tensor ``index_add_`` is differentiable itself.
 - ``deposit_window_packed`` (the Pallas ``_window_kernel``) sums packed
   ``(ix << 20) | (iy << 10) | iz`` keys into a fresh grid.  On a CUDA
   tensor it launches ``csrc/deposit_window.cu``; on a CPU tensor it runs
@@ -37,6 +45,13 @@ deposit_plain_calls = 0
 window_kernel_launches = 0
 #: plain-version calls made by :func:`deposit_window_packed` (CPU tensors)
 window_plain_calls = 0
+#: kernel launches made by :func:`deposit_gather` (CUDA tensors)
+gather_kernel_launches = 0
+#: plain-version calls made by :func:`deposit_gather` (CPU tensors)
+gather_plain_calls = 0
+#: :func:`deposit_add_` calls on CUDA tensors that went through the autograd
+#: Function (each is owed one :func:`deposit_gather` in the backward)
+deposit_autograd_calls = 0
 
 _BIG = 2**30  # the dead packed key
 
@@ -47,23 +62,32 @@ _bad: dict = {}
 def reset_counts():
     global deposit_kernel_launches, deposit_plain_calls
     global window_kernel_launches, window_plain_calls
+    global gather_kernel_launches, gather_plain_calls, deposit_autograd_calls
     deposit_kernel_launches = 0
     deposit_plain_calls = 0
     window_kernel_launches = 0
     window_plain_calls = 0
+    gather_kernel_launches = 0
+    gather_plain_calls = 0
+    deposit_autograd_calls = 0
 
 
-def _round_bf16(dot_dtype) -> bool:
+def _round_bf16(dot_dtype, val_dtype=torch.float32) -> bool:
+    """Whether values round to bfloat16; a float64 deposit has none (the
+    reference's float64 run has no bfloat16 contraction)."""
     if dot_dtype == torch.float32:
         return False
     if dot_dtype == torch.bfloat16:
+        if val_dtype == torch.float64:
+            raise TypeError("dot_dtype=bfloat16 takes float32 values, not "
+                            "float64")
         return True
     raise TypeError(f"dot_dtype must be float32 or bfloat16, not {dot_dtype}")
 
 
 def _as_dot(val: torch.Tensor, dot_dtype) -> torch.Tensor:
     """Each value rounded to ``dot_dtype`` and back to float32."""
-    if _round_bf16(dot_dtype):
+    if _round_bf16(dot_dtype, val.dtype):
         return val.to(torch.bfloat16).to(torch.float32)
     return val
 
@@ -106,17 +130,64 @@ def deposit_add_plain(tally_flat: torch.Tensor, flat_idx: torch.Tensor,
 
 
 def _check(tally_flat, flat_idx, val):
-    if tally_flat.dtype != torch.float32 or tally_flat.ndim != 1:
-        raise TypeError("tally_flat must be a 1-D float32 tensor")
+    if tally_flat.ndim != 1 or tally_flat.dtype not in (torch.float32,
+                                                        torch.float64):
+        raise TypeError("tally_flat must be a 1-D float32 or float64 tensor")
     if not tally_flat.is_contiguous():
         raise ValueError("tally_flat must be contiguous")
-    if flat_idx.dtype != torch.int32 or val.dtype != torch.float32:
-        raise TypeError("flat_idx must be int32 and val float32")
+    if flat_idx.dtype != torch.int32 or val.dtype != tally_flat.dtype:
+        raise TypeError(f"flat_idx must be int32 and val {tally_flat.dtype} "
+                        f"as the tally (got {flat_idx.dtype}, {val.dtype})")
     if flat_idx.shape != val.shape:
         raise ValueError(f"flat_idx {tuple(flat_idx.shape)} and val "
                          f"{tuple(val.shape)} differ in shape")
     if flat_idx.device != tally_flat.device or val.device != tally_flat.device:
         raise ValueError("tally_flat, flat_idx and val must share a device")
+
+
+def _launch_add(tally_flat, idx, v, round_bf16: bool, signed: bool):
+    """The deposit kernel on CUDA tensors (``idx``, ``v`` contiguous, 1-D,
+    non-empty): one launch, counted."""
+    global deposit_kernel_launches
+    from .. import _build
+
+    dev = tally_flat.device
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        rc = lib.rsmcrt_deposit_add(
+            tally_flat.data_ptr(), idx.data_ptr(), v.data_ptr(), idx.numel(),
+            tally_flat.numel(), int(round_bf16), int(signed),
+            int(tally_flat.dtype == torch.float64),
+            _bad_counter(dev).data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"deposit kernel launch failed: CUDA error {rc}")
+    deposit_kernel_launches += 1
+
+
+class _DepositAdd(torch.autograd.Function):
+    """The deposit kernel under autograd: the forward adds in place (the
+    tally is marked dirty, so a view of a tally rebases its base's
+    history); the backward passes the tally's gradient on unchanged and
+    gives ``val`` the gather of it (:func:`deposit_gather`).  Only the
+    indices and values are saved: the tally may change again before the
+    backward, and the backward never reads it."""
+
+    @staticmethod
+    def forward(ctx, tally_flat, idx, v, signed):
+        _launch_add(tally_flat, idx, v, False, signed)
+        ctx.mark_dirty(tally_flat)
+        ctx.save_for_backward(idx, v)
+        ctx.signed = signed
+        return tally_flat
+
+    @staticmethod
+    def backward(ctx, grad_tally):
+        idx, v = ctx.saved_tensors
+        grad_val = None
+        if ctx.needs_input_grad[2]:
+            grad_val = deposit_gather(grad_tally, idx, v, ctx.signed)
+        return grad_tally, None, grad_val, None
 
 
 def deposit_add_(tally_flat: torch.Tensor, flat_idx: torch.Tensor,
@@ -126,12 +197,20 @@ def deposit_add_(tally_flat: torch.Tensor, flat_idx: torch.Tensor,
     ``signed``, every finite ``val != 0`` (one kernel, the keep test a
     template parameter).
 
-    ``tally_flat``: float32 ``[nx*ny*nz]``; ``flat_idx``: int32, flattened
-    as ``voxel_flat_index`` does (``(x*ny + y)*nz + z``); ``val``: float32
-    of the same shape.  Returns ``tally_flat``."""
-    global deposit_kernel_launches, deposit_plain_calls
+    ``tally_flat``: float32 or float64 ``[nx*ny*nz]``; ``flat_idx``:
+    int32, flattened as ``voxel_flat_index`` does (``(x*ny + y)*nz + z``);
+    ``val``: the tally's type, of the same shape.  Differentiable in
+    ``val`` and ``tally_flat`` (the gradient of ``val`` is the tally's
+    gradient at each kept row, 0 elsewhere), except with
+    ``dot_dtype=bfloat16``, which raises under grad mode.  Returns
+    ``tally_flat``."""
+    global deposit_plain_calls, deposit_autograd_calls
     _check(tally_flat, flat_idx, val)
-    round_bf16 = _round_bf16(dot_dtype)
+    round_bf16 = _round_bf16(dot_dtype, val.dtype)
+    grad = torch.is_grad_enabled() and val.requires_grad
+    if round_bf16 and grad:
+        raise RuntimeError("the bfloat16 deposit is not differentiable: "
+                           "run it under torch.no_grad() or in float32")
     dev = tally_flat.device
     if dev.type == "cpu":
         deposit_plain_calls += 1
@@ -140,22 +219,63 @@ def deposit_add_(tally_flat: torch.Tensor, flat_idx: torch.Tensor,
         raise NotImplementedError(f"no deposit kernel for {dev.type}")
     idx = flat_idx.reshape(-1).contiguous()
     v = val.reshape(-1).contiguous()
-    n = idx.numel()
-    if n == 0:
+    if idx.numel() == 0:
         return tally_flat
+    if grad:
+        deposit_autograd_calls += 1
+        return _DepositAdd.apply(tally_flat, idx, v, signed)
+    _launch_add(tally_flat, idx, v, round_bf16, signed)
+    return tally_flat
+
+
+def deposit_gather_plain(grad_tally: torch.Tensor, flat_idx: torch.Tensor,
+                         val: torch.Tensor,
+                         signed: bool = False) -> torch.Tensor:
+    """Plain PyTorch twin of the gather kernel: ``grad_tally[idx]`` on the
+    rows :func:`deposit_add_` keeps (the same test) whose index lies in
+    the tally, 0 on every other row."""
+    n = grad_tally.shape[0]
+    ok = _kept(val, signed) & (flat_idx >= 0) & (flat_idx < n)
+    safe = torch.where(ok, flat_idx, 0).long()
+    return torch.where(ok, grad_tally.index_select(0, safe.reshape(-1))
+                       .reshape(safe.shape), 0.0)
+
+
+def deposit_gather(grad_tally: torch.Tensor, flat_idx: torch.Tensor,
+                   val: torch.Tensor, signed: bool = False) -> torch.Tensor:
+    """The backward of :func:`deposit_add_` for ``val``: a fresh tensor of
+    ``val``'s shape holding ``grad_tally[flat_idx]`` on every row the
+    deposit keeps (``val > 0``; with ``signed`` every finite ``val !=
+    0``) whose index lies in the tally, 0 elsewhere.  On a CUDA tensor it
+    launches ``csrc/deposit.cu``'s ``deposit_gather_kernel`` (one thread a
+    row); on a CPU tensor it runs :func:`deposit_gather_plain`."""
+    global gather_kernel_launches, gather_plain_calls
+    g = grad_tally.contiguous()  # an expanded gradient has stride 0
+    _check(g, flat_idx, val)
+    dev = g.device
+    if dev.type == "cpu":
+        gather_plain_calls += 1
+        return deposit_gather_plain(g, flat_idx, val, signed)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"no gather kernel for {dev.type}")
+    idx = flat_idx.reshape(-1).contiguous()
+    v = val.reshape(-1).contiguous()
+    out = torch.empty_like(v)
+    if idx.numel() == 0:
+        return out.reshape(val.shape)
     from .. import _build
 
     lib = _build.load()
     with torch.cuda.device(dev):
-        rc = lib.rsmcrt_deposit_add(
-            tally_flat.data_ptr(), idx.data_ptr(), v.data_ptr(), n,
-            tally_flat.numel(), int(round_bf16), int(signed),
-            _bad_counter(dev).data_ptr(),
+        rc = lib.rsmcrt_deposit_gather(
+            out.data_ptr(), g.data_ptr(), idx.data_ptr(), v.data_ptr(),
+            idx.numel(), g.numel(), int(signed),
+            int(g.dtype == torch.float64),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"deposit kernel launch failed: CUDA error {rc}")
-    deposit_kernel_launches += 1
-    return tally_flat
+        raise RuntimeError(f"gather kernel launch failed: CUDA error {rc}")
+    gather_kernel_launches += 1
+    return out.reshape(val.shape)
 
 
 def deposit_delta(grid_shape, x, y, z, val,

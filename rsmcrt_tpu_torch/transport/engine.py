@@ -58,11 +58,24 @@ d n_p`` carried through scatter, reflection and refraction by
 (a sum over lanes, a torch reduction).
 
 Random numbers: each megastep consumes up to three uniform blocks in
-(0, 1) (:class:`StepDraws`), drawn from the run's ``torch.Generator``
-unless the caller injects them -- the parity tests hand both packages the
-blocks ``jax.random`` draws for the reference.  With ``qmc_source`` the
-source block is a scrambled Halton block keyed by the global photon
-index, rotated by shifts drawn once a run (``SimCarry.qmc_shifts``).
+(0, 1) (:class:`StepDraws`), drawn in the carry's type from the run's
+``torch.Generator`` unless the caller injects them -- the parity tests
+hand both packages the blocks ``jax.random`` draws for the reference.
+With ``qmc_source`` the source block is a scrambled Halton block keyed by
+the global photon index, rotated by shifts drawn once a run
+(``SimCarry.qmc_shifts``).
+
+Types: a run is float32 unless its scene is float64 (``build_scene(...,
+dtype=torch.float64)`` with a float64 grid and source): ``simulate``
+takes the carry's type from ``scene.tables.mus``, and every constant
+(``eps``, the segment cap, the roulette threshold) is formed in that
+type, as the reference forms it.
+
+Gradients: the megastep is differentiable in the scene's parameters (a
+``mua`` that requires a gradient, say) through ``torch.autograd``, as the
+reference's is through ``jax.grad``: every deposit of a value that
+requires a gradient goes through the deposit kernel's autograd Function,
+and the surface normals and raycast slopes keep their graph.
 """
 
 from __future__ import annotations
@@ -77,7 +90,8 @@ import torch
 from ..constants import CHANCE, THRESHOLD, TWOPI
 from ..detectors.detectors import (check_bins, flush_bins, ordered_cols,
                                    record_hits)
-from ..grid import CartGrid, f32, get_voxel, voxel_flat_index
+from ..grid import (CartGrid, as_dtype, f32, get_voxel, np_dtype,
+                    voxel_flat_index)
 from ..maths.qmc import halton_block, halton_shifts
 from ..sdfs import raycast
 from ..sdfs.scene import Scene, eval_scene, scene_layer
@@ -211,24 +225,26 @@ class StepDraws(NamedTuple):
     u_rsp: Optional[torch.Tensor]
 
 
-def _uniform(shape, generator, device):
+def _uniform(shape, generator, device, dtype):
     # the reference draws with minval=1e-12: keep -log(u) finite
     return torch.rand(shape, generator=generator, device=device,
-                      dtype=torch.float32).clamp_(min=1e-12)
+                      dtype=dtype).clamp_(min=1e-12)
 
 
 def draw_step(generator: torch.Generator, B: int, cfg: TransportConfig,
-              source: Source, device, scene=None) -> StepDraws:
+              source: Source, device, scene=None,
+              dtype=torch.float32) -> StepDraws:
     """The blocks a megastep of ``cfg`` on ``scene`` consumes (without a
-    scene: those of the chained walk)."""
+    scene: those of the chained walk), in ``dtype`` (the carry's)."""
     n_src_u = n_source_uniforms(source)
-    u_all = _uniform((B, n_src_u + _N_TRANSPORT_U), generator, device)
+    u_all = _uniform((B, n_src_u + _N_TRANSPORT_U), generator, device,
+                     dtype)
     uc = u_rsp = None
     if scene is None or cfg.chains(scene):
-        uc = _uniform((B, cfg.dda_substeps, 4), generator, device)
+        uc = _uniform((B, cfg.dda_substeps, 4), generator, device, dtype)
     if cfg.respawns_in_chain(scene):
         u_rsp = _uniform((cfg.chain_respawns * B, n_src_u + 1), generator,
-                         device)
+                         device, dtype)
     return StepDraws(u_all, uc, u_rsp)
 
 
@@ -278,19 +294,22 @@ def init_carry(grid: CartGrid, cfg: TransportConfig, bank=None,
     )
 
 
-def _scalars(cfg: TransportConfig):
-    """eps, land_eps, delta_cross in float32 arithmetic, as the reference
-    forms them from its float32 ``eps``."""
-    e = np.float32(cfg.eps)
-    land = np.float32(0.5) * e
-    return float(e), float(land), float(land + np.float32(2.0) * e)
+def _scalars(cfg: TransportConfig, dtype=torch.float32):
+    """eps, land_eps, delta_cross in the run's arithmetic (``dtype``), as
+    the reference forms them from ``jnp.asarray(cfg.eps, dtype)``: a
+    float64 run at eps = 1e-8 keeps it as it is."""
+    ft = np_dtype(dtype)
+    e = ft(cfg.eps)
+    land = ft(0.5) * e
+    return float(e), float(land), float(land + ft(2.0) * e)
 
 
 def _seg_cap(grid: CartGrid) -> float:
-    """Segment cap: photons that outlive it never re-enter the grid."""
-    x, y, z = (np.float32(v) for v in (grid.xmax, grid.ymax, grid.zmax))
-    return float(np.float32(8.0) * np.sqrt(x * x + y * y + z * z)
-                 + np.float32(1.0))
+    """Segment cap: photons that outlive it never re-enter the grid (in
+    the grid's type, as the reference forms it from the grid's extents)."""
+    ft = np_dtype(grid.dtype)
+    x, y, z = (ft(v) for v in (grid.xmax, grid.ymax, grid.zmax))
+    return float(ft(8.0) * np.sqrt(x * x + y * y + z * z) + ft(1.0))
 
 
 def _opt_lookup(tables, arr, layer, wavelength):
@@ -529,7 +548,7 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
     half = grid.half_extent
     dv = grid.voxel_size
     counts = grid.n_counts
-    eps, _, delta_cross = _scalars(cfg)
+    eps, _, delta_cross = _scalars(cfg, dtype)
     fluence = cfg.record_fluence
     ana_mask = raycast.analytic_column_mask(scene)
 
@@ -555,7 +574,7 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
     # once; respawn is blocked once every slot is used
     n_slots = cfg.chain_respawns + 1
     survival = cfg.survival_bias
-    thr, ch = f32(THRESHOLD), f32(CHANCE)
+    thr, ch = as_dtype(THRESHOLD, dtype), as_dtype(CHANCE, dtype)
     ab_flats, ab_vals = [], []  # survival bias: one pair a round
     absorb_ws = [torch.zeros((B,), dtype=dtype, device=dev)
                  for _ in range(n_slots)]
@@ -663,7 +682,7 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
         overb = refl & (bounces2 > cfg.max_bounces)
         srf_die = outside | overb
         if cfg.roulette_bounces > 0:
-            chance = f32(cfg.roulette_chance)
+            chance = as_dtype(cfg.roulette_chance, dtype)
             trapped = refl & (bounces2 > cfg.roulette_bounces)
             survive = trapped & (u_r[:, 1] < chance)
             w_l = torch.where(survive, w_l / chance, w_l)
@@ -991,12 +1010,12 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
     dev = st.pos.device
     B = st.pos.shape[0]
     tables = scene.tables
-    eps, land_eps, _ = _scalars(cfg)
+    eps, land_eps, _ = _scalars(cfg, dtype)
     seg_cap = _seg_cap(grid)
     chaining = cfg.chains(scene)
     n_src_u = n_source_uniforms(source)
     if draws is None:
-        draws = draw_step(generator, B, cfg, source, dev, scene)
+        draws = draw_step(generator, B, cfg, source, dev, scene, dtype)
     u_src = draws.u_all[:, :n_src_u]
     u = draws.u_all[:, n_src_u:]
 
@@ -1148,7 +1167,7 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
     # reference caps reflections at 1000 (inttau2.f90:313-315)
     overbounced = reflecting & (bounces > cfg.max_bounces)
     if cfg.roulette_bounces > 0:
-        chance = f32(cfg.roulette_chance)
+        chance = as_dtype(cfg.roulette_chance, dtype)
         trapped = reflecting & (bounces > cfg.roulette_bounces)
         survive_rr = trapped & (u[:, _U_ROULETTE] < chance)
         weight = torch.where(survive_rr, weight / chance, weight)
@@ -1426,8 +1445,8 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
                                dim=-1)
             ab_w = torch.cat([out["absorb_w"], ab_w[:, None]], dim=-1)
         deposit_add_(tl.absorb, ab_idx.reshape(-1), ab_w.reshape(-1))
-        ch = f32(CHANCE)
-        roulette = interact & (weight < f32(THRESHOLD))
+        ch = as_dtype(CHANCE, dtype)
+        roulette = interact & (weight < as_dtype(THRESHOLD, dtype))
         survive = roulette & (u[:, _U_ROULETTE] < ch)
         weight = torch.where(survive, weight / ch, weight)
         died = roulette & ~survive
@@ -1560,7 +1579,8 @@ def warmup(scene: Scene, source: Source, grid: CartGrid,
         _build.load()
     for lanes in shrink_ladder(cfg.n_lanes, min_lanes):
         cfg_l = replace(cfg, n_lanes=lanes)
-        carry = init_carry(grid, cfg_l, bank=bank)
+        carry = init_carry(grid, cfg_l, bank=bank,
+                           dtype=scene.tables.mus.dtype)
         _run_steps(scene, source, grid, generator, carry, cfg_l, 1,
                    max(lanes // 8, 1))
     if scene.device.type == "cuda":
@@ -1587,7 +1607,8 @@ def simulate(scene: Scene, source: Source, grid: CartGrid,
     cfg.check_ported()
     n_target = int(cfg.nphotons if nphotons is None else nphotons)
     cur_cfg = cfg
-    carry = init_carry(grid, cfg, bank=bank)
+    # the run's type is the scene's (reference engine.py:2051)
+    carry = init_carry(grid, cfg, bank=bank, dtype=scene.tables.mus.dtype)
     drained = []
     step = 0
     while True:

@@ -324,3 +324,86 @@ def test_cuda_kernel_counts_each_bad_row(cuda_device, offset):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
     # leave the card's count at 0 for the tests that read it whole
     tdep._bad_counter(cuda_device).zero_()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("case", ["one_cell", "distinct", "runs",
+                                  "nan_negative"])
+def test_cuda_f64_kernel_matches_plain(cuda_device, case, offset):
+    """The double instantiation on the same rows in float64: rtol 1e-12
+    of the largest cell (float64 atomics add in a run-dependent order)."""
+    n_cells, idx, val = _design_case(case, np.random.default_rng(41))
+    idx, val = idx[offset:], val[offset:].double()
+    want = tdep.deposit_add_plain(torch.zeros(n_cells, dtype=torch.float64),
+                                  idx, val)
+    before = tdep.deposit_kernel_launches
+    got = tdep.deposit_add_(
+        torch.zeros(n_cells, dtype=torch.float64, device=cuda_device),
+        idx.to(cuda_device), val.to(cuda_device)).cpu()
+    assert tdep.deposit_kernel_launches == before + 1
+    assert got.dtype == torch.float64
+    err = float((got - want).abs().max())
+    assert err <= 1e-12 * float(want.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cuda_gather_matches_plain(cuda_device, dtype, signed, offset):
+    """The backward kernel equals its plain twin exactly (a gather sums
+    nothing), on rows with zeros, NaN, inf, negative values and indices
+    out of range."""
+    n_cells, idx, val = _signed_case("scattered", np.random.default_rng(5))
+    idx = idx.clone()
+    idx[::101] = n_cells + 7
+    idx[1::101] = -3
+    tdt = getattr(torch, dtype)
+    idx, val = idx[offset:], val[offset:].to(tdt)
+    grad = torch.randn(n_cells, generator=torch.Generator().manual_seed(2),
+                       dtype=tdt)
+    want = tdep.deposit_gather_plain(grad, idx, val, signed)
+    before = tdep.gather_kernel_launches
+    got = tdep.deposit_gather(grad.to(cuda_device), idx.to(cuda_device),
+                              val.to(cuda_device), signed).cpu()
+    assert tdep.gather_kernel_launches == before + 1
+    assert torch.equal(got, want)
+    # an expanded (stride 0) gradient, as the backward of a sum hands it
+    ones = torch.ones((), dtype=tdt, device=cuda_device).expand(n_cells)
+    got = tdep.deposit_gather(ones, idx.to(cuda_device),
+                              val.to(cuda_device), signed).cpu()
+    assert torch.equal(got, tdep.deposit_gather_plain(
+        torch.ones(n_cells, dtype=tdt), idx, val, signed))
+
+
+@pytest.mark.cuda
+def test_cuda_deposit_type_and_grad_rules(cuda_device):
+    """An f64 tally refuses f32 values; bfloat16 refuses float64 values
+    and grad mode; under grad mode the deposit goes through the autograd
+    Function and the backward launches the gather kernel."""
+    idx = torch.tensor([0, 3, 3, 9], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        tdep.deposit_add_(torch.zeros(10, dtype=torch.float64,
+                                      device=cuda_device), idx,
+                          torch.ones(4, device=cuda_device))
+    with pytest.raises(TypeError):
+        tdep.deposit_add_(torch.zeros(10, dtype=torch.float64,
+                                      device=cuda_device), idx,
+                          torch.ones(4, dtype=torch.float64,
+                                     device=cuda_device), torch.bfloat16)
+    v = torch.tensor([1.0, 2.0, -1.0, 4.0], device=cuda_device,
+                     requires_grad=True)
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        tdep.deposit_add_(torch.zeros(10, device=cuda_device), idx, v,
+                          torch.bfloat16)
+    tally = torch.zeros(10, device=cuda_device)
+    calls, gathers = tdep.deposit_autograd_calls, tdep.gather_kernel_launches
+    tdep.deposit_add_(tally, idx, v * 3.0)
+    w = torch.arange(10.0, device=cuda_device)
+    (g,) = torch.autograd.grad((tally * w).sum(), v)
+    assert tdep.deposit_autograd_calls == calls + 1
+    assert tdep.gather_kernel_launches == gathers + 1
+    assert g.cpu().tolist() == [0.0, 9.0, 0.0, 27.0]
+    assert tally.detach().cpu().tolist() == [
+        3.0, 0.0, 0.0, 6.0, 0.0, 0.0, 0.0, 0.0, 0.0, 12.0]
