@@ -1,6 +1,12 @@
 """Drive the PyTorch port once on an NVIDIA card and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only
+
+``--kernels-only`` runs phases 1-3, 23 and 24 (the deposit kernels and the
+gradient run whose gathers phase 23 times) and prints no result line.
+What bounds the deposit kernels is measured apart, by
+``python -m rsmcrt_tpu_torch.profile_deposit``.
 
 Phases (each raises on failure; the exit code is non-zero on any):
 
@@ -17,10 +23,11 @@ Phases (each raises on failure; the exit code is non-zero on any):
    res/escape_test.toml (16 cells); each timed with CUDA events beside
    its plain twin and one ``index_add_``, with the rows' live share,
    rows per cell and mean group of equal indices in 32 consecutive rows.
-4. physics gate: res/scat_test.toml cut to 20,000 photons on the 200^3
-   grid through ``kernels.run_MCRT``; nscatt/photon must be 57.5 +- 1.0
-   (phase 17 holds the same scene with a 1D spectrum to 57.5 +- 0.5 at
-   100,000 photons).
+4. physics gate: res/test_spectra_const.toml (res/scat_test.toml's sphere
+   at one wavelength: the same photons) cut to 20,000 photons on the
+   200^3 grid through ``kernels.run_MCRT``; nscatt/photon must be 57.5 +-
+   1.0.  It is also phase 17's test_spectra_const run (phase 17 holds the
+   same scene with a 1D spectrum to 57.5 +- 0.5 at 100,000 photons).
 5. card against CPU: a reduced res/sphere.toml (32^3 grid, 16,000
    photons) on the card and on the CPU; the kernel path and the plain path
    must tally the same physics (nscatt within 1.0, path length within 2%,
@@ -76,8 +83,8 @@ Phases (each raises on failure; the exit code is non-zero on any):
     fluence's, every deposit goes through the kernel.
 17. res/test_spectra_1D.toml at its 100,000 photons on 200^3
     (nscatt/photon 57.5 +- 0.5) and its launched wavelengths against
-    blood.dat's CDF (KS distance under 3/sqrt(n)); test_spectra_2D and
-    _const cut to 20,000 photons (57.5 +- 1.0).
+    blood.dat's CDF (KS distance under 3/sqrt(n)); test_spectra_2D cut
+    to 20,000 photons (57.5 +- 1.0); _const is phase 4's run.
 18. survival bias on res/validation1.toml at its 1,000,000 photons, the
     fluence estimator off, at the reference's Rd / Td gate.
 19. path history: res/validation1.toml with ``trackHistory = true`` in a
@@ -112,11 +119,14 @@ Phases (each raises on failure; the exit code is non-zero on any):
 
 23. the deposit kernel's float64 instantiation against its plain twin on
     phase 3's three mixes and the captured fluence rows cast to float64
-    (rtol 1e-12 of the largest cell), and the backward kernel
-    ``deposit_gather`` in float32 and float64 on the captured fluence rows
-    with a random ``grad_tally``, equal to its plain twin; each timed
-    beside its plain twin and one PyTorch call (``index_add_`` in float64,
-    ``index_select``).
+    (rtol 1e-12 of the largest cell); then, after phase 24, the backward
+    kernel ``deposit_gather`` in float32 and float64 on the captured
+    fluence rows with a random ``grad_tally`` and on one of phase 24's
+    gathers (262,144 rows) with its own expanded (stride-0) gradient and
+    with a random one, equal to its plain twin, also on unaligned rows,
+    and never materialising the expanded gradient; each timed beside its
+    plain twin, one PyTorch call (``index_add_`` in float64,
+    ``index_select``) and the byte bound.
 24. the pathwise gradient (tests/test_autodiff.py) on the card:
     ``torch.autograd.grad`` of ``sum(jmean) / nphotons`` in ``mua``
     through ``engine.transport_step``, the absorber box at 32,768 lanes
@@ -127,11 +137,12 @@ Phases (each raises on failure; the exit code is non-zero on any):
     same draws on the card and on the CPU (rel 1e-4).  Seconds forward and
     backward and peak device memory of each; every deposit goes through
     the kernel and the backward launches one gather for each deposit that
-    went through the autograd Function.
+    went through the autograd Function; the full-width absorber box's
+    gathers are kept for phase 23.
 25. float64 at full width (32,768 lanes, 200^3, K = 64): the scat_test
-    sphere in float64 at eps = 1e-8 (nscatt/photon 57.5 +- 1.0 at 100,000
+    sphere in float64 at eps = 1e-8 (nscatt/photon 57.5 +- 1.0 at 50,000
     photons) and the refractive bench sphere in float32 and then in
-    float64 (100,000 photons each): fluence per photon within 5%,
+    float64 (20,000 photons each): fluence per photon within 5%,
     photons/s of both; the float64 tallies are float64 and every deposit
     hands the kernel float64 values.
 26. checkpoints on the card: tests/test_checkpoint_resume.py's run
@@ -144,7 +155,13 @@ sampler is wrapped for that run (``_launched_wavelengths``).
 
 Phases 4, 6, 10, 12 and 14 were cut (from 100,000 photons, 500,000,
 2,000,000, 30 megasteps and 8 / 40 megasteps) to make room for phases
-15-20 within the time limit.
+15-20 within the time limit; phase 4 then became phase 17's
+test_spectra_const run, which it had repeated, and phase 25's three
+runs were cut from 100,000 photons to 50,000 (the script had taken
+853.4 s and 1,095.1 s of its 1,200 s limit in two runs of one tree on an
+H100 80GB HBM3 at 700 W), then its refractive pair to 20,000 (1,028.1 s
+on a slower host; every phase took 1.3-2.9x its time in a 665.1 s run
+of the same phases).
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -636,17 +653,13 @@ def _profile(jmean, g):
                      for lo, hi in zip(b, b[1:])])
 
 
-def phase_physics(dev, card, n=20_000):
-    from rsmcrt_tpu_torch import kernels
-
-    parsed, scene = kernels.setup(SCAT, device=dev)
-    res = kernels.run_MCRT(parsed, scene, nphotons=n)
-    ns = res.nscatt_per_photon
-    log(f"[physics] scat_test: {res.launched} photons (cut from 100,000), "
-        f"nscatt/photon {ns:.4f} (want 57.5 +- 1.0), {res.steps} megasteps,"
-        f" {res.elapsed:.2f} s [{card}]")
-    if res.launched != n or abs(ns - 57.5) >= 1.0:
-        raise AssertionError(f"scat_test nscatt {ns}")
+def phase_physics(dev, card):
+    """res/test_spectra_const.toml (res/scat_test.toml's sphere at one
+    wavelength: the same photons, the same nscatt) cut to 20,000 photons
+    through ``kernels.run_MCRT``: nscatt/photon 57.5 +- 1.0.  The run is
+    also phase 17's test_spectra_const run.  Returns its deposit kernel
+    launches."""
+    return _spectra_run(dev, card, "const", 20_000, 1.0)[1]
 
 
 def phase_card_vs_cpu(dev, tmp, card):
@@ -966,7 +979,10 @@ def phase_omg_card_vs_cpu(card, dev, cpu_run):
     proc, out, toml = cpu_run
     # the megastep cap bounds a run that draws a face creeper (phase 12)
     ns_c, path_c, t_c, s_c, *prof_c = _omg_reduced(toml, dev, 24)
+    t0 = time.perf_counter()
     proc.join()
+    log(f"[omg-card-vs-cpu] waited {time.perf_counter() - t0:.2f} s for "
+        f"the CPU child")
     if proc.exitcode != 0:
         raise AssertionError(f"omg CPU run exited with {proc.exitcode}")
     ns_h, path_h, t_h, s_h, *prof_h = np.load(out)
@@ -1262,30 +1278,40 @@ def _launched_wavelengths(rows):
             real
 
 
+def _spectra_run(dev, card, key, n, tol):
+    """One res/test_spectra_{key}.toml run through ``kernels.run_MCRT``
+    (``n`` photons, None for the config's), nscatt/photon 57.5 +- ``tol``:
+    ``(result, deposit kernel launches, the launched wavelengths)``."""
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.transport import deposit as dep
+
+    parsed, scene = kernels.setup(SPECTRA[key], device=dev)
+    dep.reset_counts()
+    with _launched_wavelengths([]) as rows:
+        res = kernels.run_MCRT(parsed, scene, nphotons=n)
+    launches = _main_path(f"test_spectra_{key}")
+    ns = res.nscatt_per_photon
+    log(f"[spectra] res/test_spectra_{key}.toml: {res.launched} photons "
+        f"on {GRID}^3, nscatt/photon {ns:.4f} (want 57.5 +- {tol}), "
+        f"{res.steps} megasteps, {res.elapsed:.2f} s, "
+        f"{res.photons_per_second:.1f} photons/s [{card}]")
+    if (n is not None and res.launched != n) or abs(ns - 57.5) >= tol:
+        raise AssertionError(f"test_spectra_{key}: {res.launched} photons, "
+                             f"nscatt {ns}")
+    return res, launches, rows
+
+
 def phase_spectra(dev, card):
     """res/test_spectra_1D.toml at its 100,000 photons on 200^3 (scat_test:
     nscatt/photon 57.5 +- 0.5), the wavelengths that run launched against
     blood.dat's CDF (KS distance under 3/sqrt(n), their count equal to
-    the photons launched); test_spectra_2D and _const cut to 20,000
-    photons (57.5 +- 1.0)."""
-    from rsmcrt_tpu_torch import kernels
-    from rsmcrt_tpu_torch.transport import deposit as dep
-
+    the photons launched); test_spectra_2D cut to 20,000 photons (57.5 +-
+    1.0).  test_spectra_const (20,000 photons, 57.5 +- 1.0) ran as phase
+    4."""
     launches = 0
-    for key, n, tol in (("1D", None, 0.5), ("2D", 20_000, 1.0),
-                        ("const", 20_000, 1.0)):
-        parsed, scene = kernels.setup(SPECTRA[key], device=dev)
-        dep.reset_counts()
-        with _launched_wavelengths([]) as rows:
-            res = kernels.run_MCRT(parsed, scene, nphotons=n)
-        launches += _main_path(f"test_spectra_{key}")
-        ns = res.nscatt_per_photon
-        log(f"[spectra] res/test_spectra_{key}.toml: {res.launched} photons "
-            f"on {GRID}^3, nscatt/photon {ns:.4f} (want 57.5 +- {tol}), "
-            f"{res.steps} megasteps, {res.elapsed:.2f} s, "
-            f"{res.photons_per_second:.1f} photons/s [{card}]")
-        if abs(ns - 57.5) >= tol:
-            raise AssertionError(f"test_spectra_{key}: nscatt {ns}")
+    for key, n, tol in (("1D", None, 0.5), ("2D", 20_000, 1.0)):
+        res, k, rows = _spectra_run(dev, card, key, n, tol)
+        launches += k
         if key == "1D":
             m = res.launched
             wl = torch.cat(rows).double().cpu().numpy()
@@ -1485,7 +1511,10 @@ def phase_plain_card_vs_cpu(dev, tmp, card, cpu_run):
     :func:`start_plain_cpu`)."""
     proc, out = cpu_run
     card_res = {name: _plain_run(name, dev, tmp) for name, _ in PLAIN_RUNS}
+    t0 = time.perf_counter()
     proc.join()
+    log(f"[plain-card-vs-cpu] waited {time.perf_counter() - t0:.2f} s for "
+        f"the CPU child")
     if proc.exitcode != 0:
         raise AssertionError(f"plain-walk CPU runs exited {proc.exitcode}")
     cpu_res = np.load(out)
@@ -1788,29 +1817,27 @@ def phase_inverse(dev, tmp, card):
 
 def _gather_library(grad, idx):
     """The one PyTorch call that gathers the same cells (a yardstick, not
-    used by the port): ``index_select`` of every row, kept or not."""
+    used by the port): ``index_select`` of every row, kept or not, from
+    the gradient as it is handed (an expanded one included)."""
     idx_l = idx.long()
     return lambda: grad.index_select(0, idx_l)
 
 
-def phase_kernel_f64_gather(dev, card, jmean_rows):
-    """``deposit_add_`` in float64 against its plain twin on phase 3's
-    three mixes and the captured fluence rows, cast to float64 (rtol
-    1e-12 of the largest cell: float64 atomics add in a run-dependent
-    order), and ``deposit_gather`` in float32 and float64 on the captured
-    rows with a random ``grad_tally`` against its plain twin (exactly: a
-    gather sums nothing); each timed beside its plain twin and one PyTorch
-    call (``index_add_`` in float64, ``index_select``)."""
+def phase_kernel_f64(dev, card, jmean_rows):
+    """``deposit_add_`` in float64 against its plain twin (rtol 1e-12 of
+    the largest cell: float64 atomics add in a run-dependent order) on
+    phase 3's three mixes and the captured fluence rows cast to float64;
+    each timed beside its plain twin, one ``index_add_`` and the byte
+    bound."""
     from rsmcrt_tpu_torch.transport import deposit as dep
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(4321)
     inputs = {k: (i, v.double()) for k, (i, v) in _mixes(dev, gen).items()}
     inputs["capture_jmean"] = (jmean_rows[0], jmean_rows[1].double())
-    n_cells = GRID ** 3
     rows = {}
     for name, (idx, val) in inputs.items():
-        tally = torch.zeros(n_cells, dtype=torch.float64, device=dev)
+        tally = torch.zeros(GRID ** 3, dtype=torch.float64, device=dev)
         got = dep.deposit_add_(tally.clone(), idx, val)
         want = dep.deposit_add_plain(tally.clone(), idx, val)
         torch.cuda.synchronize()
@@ -1819,61 +1846,101 @@ def phase_kernel_f64_gather(dev, card, jmean_rows):
         if err > 1e-12 * scale:
             raise AssertionError(f"f64 {name}: kernel vs plain {err} > "
                                  f"1e-12 * {scale}")
-        t_p1, t_k1, t_k2, t_p2 = (_time_ms(f) for f in (
-            lambda: dep.deposit_add_plain(tally, idx, val),
-            lambda: dep.deposit_add_(tally, idx, val),
-            lambda: dep.deposit_add_(tally, idx, val),
-            lambda: dep.deposit_add_plain(tally, idx, val)))
+        t_k1, t_k2 = (_time_ms(lambda: dep.deposit_add_(tally, idx, val))
+                      for _ in range(2))
+        t_p = _time_ms(lambda: dep.deposit_add_plain(tally, idx, val))
         t_lib = min(_time_ms(_library_add(tally, idx, val))
                     for _ in range(2))
         touched = int(torch.unique(idx[val > 0]).numel())
         # each row's int32 index and float64 value read once; each touched
         # cell read and written once
         bound = _bound_ms(12 * idx.numel() + 16 * touched)
-        rows[f"f64_{name}"] = dict(err=err, ms=min(t_k1, t_k2),
-                                   plain_ms=min(t_p1, t_p2),
-                                   library_ms=t_lib, bound_ms=bound)
-        log(f"[f64] deposit_add {name}: {idx.numel()} rows, max_abs_err "
-            f"{err:.3e} (max cell {scale:.6g}); kernel {t_k1:.4f}/"
-            f"{t_k2:.4f} ms, plain {t_p1:.4f}/{t_p2:.4f} ms, one "
-            f"index_add_ {t_lib:.4f} ms, bound {bound:.4f} ms [{card}]")
-    idx, val32 = jmean_rows
+        rows[name] = dict(err=err, ms=min(t_k1, t_k2), plain_ms=t_p,
+                          library_ms=t_lib, bound_ms=bound)
+        log(f"[f64] deposit_add {name}: {idx.numel()} rows, {touched} "
+            f"cells; max_abs_err {err:.3e} (max cell {scale:.6g}); kernel "
+            f"{t_k1:.4f}/{t_k2:.4f} ms, plain {t_p:.4f} ms, one index_add_ "
+            f"{t_lib:.4f} ms, bound {bound:.4f} ms [{card}]")
+    return rows
+
+
+def phase_gather(dev, card, jmean_rows, box_rows):
+    """``deposit_gather`` against its plain twin (exactly: a gather sums
+    nothing) in float32 and float64, signed too, on the captured fluence
+    rows with a random gradient and on one of phase 24's backward gathers
+    (262,144 rows) with its own expanded (stride-0) gradient and with a
+    random one, with aligned and unaligned rows; each timed beside its
+    plain twin, one ``index_select`` and the byte bound.  The expanded
+    gradient is never materialised: the gather's peak memory above its
+    inputs is its output."""
+    from rsmcrt_tpu_torch.transport import deposit as dep
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4322)
+    n_cells = GRID ** 3
+    rows = {}
     for dtype in (torch.float32, torch.float64):
-        val = val32.to(dtype)
-        grad = torch.randn(n_cells, generator=gen, device=dev, dtype=dtype)
-        before = dep.gather_kernel_launches
-        got = dep.deposit_gather(grad, idx, val)
-        want = dep.deposit_gather_plain(grad, idx, val)
-        torch.cuda.synchronize()
-        if dep.gather_kernel_launches != before + 1:
-            raise AssertionError("deposit_gather did not launch its kernel")
-        if not torch.equal(got, want):
-            raise AssertionError(f"gather {dtype}: kernel != plain twin")
-        got_s = dep.deposit_gather(grad, idx, val, signed=True)
-        if not torch.equal(got_s, dep.deposit_gather_plain(grad, idx, val,
-                                                           signed=True)):
-            raise AssertionError(f"signed gather {dtype}: kernel != plain")
-        t_p1, t_k1, t_k2, t_p2 = (_time_ms(f) for f in (
-            lambda: dep.deposit_gather_plain(grad, idx, val),
-            lambda: dep.deposit_gather(grad, idx, val),
-            lambda: dep.deposit_gather(grad, idx, val),
-            lambda: dep.deposit_gather_plain(grad, idx, val)))
-        t_lib = min(_time_ms(_gather_library(grad, idx)) for _ in range(2))
-        s = val.element_size()
-        kept = val > 0
-        touched = int(torch.unique(idx[kept]).numel())
-        # each row's index and value read and its gradient written once;
-        # each kept row's cell of grad_tally read once
-        bound = _bound_ms((4 + 2 * s) * idx.numel() + s * touched)
-        key = "gather" if dtype == torch.float32 else "gather_f64"
-        rows[key] = dict(err=0.0, ms=min(t_k1, t_k2),
-                         plain_ms=min(t_p1, t_p2), library_ms=t_lib,
-                         bound_ms=bound)
-        log(f"[gather] {dtype}: {idx.numel()} captured fluence rows, "
-            f"{int(kept.sum())} kept, {touched} cells; equal to the plain "
-            f"twin (signed too); kernel {t_k1:.4f}/{t_k2:.4f} ms, plain "
-            f"{t_p1:.4f}/{t_p2:.4f} ms, one index_select {t_lib:.4f} ms, "
-            f"bound {bound:.4f} ms [{card}]")
+        dense = torch.randn(n_cells, generator=gen, device=dev, dtype=dtype)
+        box_grad, box_idx, box_val = box_rows
+        # the expanded gradient in this type, still of stride 0
+        box_grad = box_grad[:1].to(dtype).expand(n_cells)
+        inputs = {
+            "capture": (dense, *jmean_rows),
+            "box_stride0": (box_grad, box_idx, box_val),
+            "box": (dense, box_idx, box_val)}
+        for name, (grad, idx, val) in inputs.items():
+            val = val.to(dtype)
+            before = dep.gather_kernel_launches
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+            got = dep.deposit_gather(grad, idx, val)
+            extra = torch.cuda.max_memory_allocated(dev) - held
+            want = dep.deposit_gather_plain(grad.contiguous(), idx, val)
+            torch.cuda.synchronize()
+            if dep.gather_kernel_launches != before + 1:
+                raise AssertionError("deposit_gather did not launch")
+            if not torch.equal(got, want):
+                raise AssertionError(f"gather {name} {dtype}: kernel != "
+                                     f"plain twin")
+            if extra > got.numel() * got.element_size() + (1 << 20):
+                raise AssertionError(f"gather {name}: {extra} bytes above "
+                                     f"its inputs")
+            got_s = dep.deposit_gather(grad, idx, val, signed=True)
+            if not torch.equal(got_s, dep.deposit_gather_plain(
+                    grad.contiguous(), idx, val, signed=True)):
+                raise AssertionError(f"signed gather {name} {dtype}")
+            t_k1, t_k2 = (_time_ms(lambda: dep.deposit_gather(grad, idx,
+                                                              val))
+                          for _ in range(2))
+            # the same rows 4 or 8 bytes past a 16-byte boundary: the
+            # kernel's scalar loads
+            i1, v1 = (torch.empty(t.numel() + 1, dtype=t.dtype,
+                                  device=dev)[1:].copy_(t)
+                      for t in (idx, val))
+            if not torch.equal(dep.deposit_gather(grad, i1, v1), want):
+                raise AssertionError(f"gather {name}: unaligned rows")
+            t_u = _time_ms(lambda: dep.deposit_gather(grad, i1, v1))
+            t_p = _time_ms(lambda: dep.deposit_gather_plain(grad, idx, val))
+            t_lib = min(_time_ms(_gather_library(grad, idx))
+                        for _ in range(2))
+            s = val.element_size()
+            kept = val > 0
+            touched = 1 if grad.stride(0) == 0 else int(
+                torch.unique(idx[kept]).numel())
+            # each row's index and value read and its gradient written
+            # once; each kept row's cell of grad_tally read once
+            bound = _bound_ms((4 + 2 * s) * idx.numel() + s * touched)
+            key = f"{name}_{'f32' if dtype == torch.float32 else 'f64'}"
+            rows[key] = dict(err=0.0, ms=min(t_k1, t_k2), plain_ms=t_p,
+                             library_ms=t_lib, bound_ms=bound)
+            log(f"[gather] {name} {dtype}: {idx.numel()} rows, "
+                f"{int(kept.sum())} kept, gradient stride "
+                f"{grad.stride(0)}, {touched} cells read; equal to the "
+                f"plain twin (signed too), {extra} bytes above the inputs; "
+                f"kernel {t_k1:.4f}/{t_k2:.4f} ms (unaligned rows "
+                f"{t_u:.4f} ms), plain {t_p:.4f} ms, one index_select "
+                f"{t_lib:.4f} ms, bound {bound:.4f} ms [{card}]")
     return rows
 
 
@@ -1928,10 +1995,11 @@ def _mua_loss(scene, grid, src, cfg, draws, mua):
     return c.tallies.jmean.sum() / cfg.nphotons
 
 
-def _grad_run(dev, scene, grid, src, cfg, draws, mua0):
+def _grad_run(dev, scene, grid, src, cfg, draws, mua0, record=None):
     """The loss and its gradient in ``mua`` on ``dev``: seconds forward,
     seconds backward, peak device memory and the deposit counts of the
-    run (the backward's gathers included)."""
+    run (the backward's gathers included).  With a list ``record``, the
+    arguments of each of the backward's gathers are appended to it."""
     from rsmcrt_tpu_torch.transport import deposit as dep
 
     on_card = dev.type == "cuda"
@@ -1945,7 +2013,18 @@ def _grad_run(dev, scene, grid, src, cfg, draws, mua0):
     if on_card:
         torch.cuda.synchronize()
     t1 = time.perf_counter()
-    (g,) = torch.autograd.grad(loss, m)
+    real = dep.deposit_gather
+
+    def recording(grad_tally, flat_idx, val, signed=False):
+        record.append((grad_tally, flat_idx, val))
+        return real(grad_tally, flat_idx, val, signed)
+
+    if record is not None:
+        dep.deposit_gather = recording
+    try:
+        (g,) = torch.autograd.grad(loss, m)
+    finally:
+        dep.deposit_gather = real
     g = float(g)
     t2 = time.perf_counter()
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
@@ -1966,7 +2045,7 @@ def _check_grad_counts(counts, what):
         raise AssertionError(f"{what}: deposit counts {counts}")
 
 
-def phase_gradient(dev, card, steps=48, chain_steps=24, k=8):
+def phase_gradient(dev, card, record, steps=48, chain_steps=24, k=8):
     """The pathwise gradient through ``engine.transport_step`` on the card
     (tests/test_autodiff.py): the absorber box at full width (32,768
     lanes and photons, 200^3, ``steps`` megasteps, K = ``k``, the plain
@@ -1975,7 +2054,9 @@ def phase_gradient(dev, card, steps=48, chain_steps=24, k=8):
     refractive sphere (res/sphere.toml physics) at 32,768 lanes on 200^3
     for ``chain_steps`` megasteps: finite and non-zero; the absorber box
     at 512 lanes on 32^3 with the same injected draws on the card and on
-    the CPU: equal to rel 1e-4."""
+    the CPU: equal to rel 1e-4.  The full-width absorber box's backward
+    gathers are appended to ``record`` (phase 23 runs the gather on
+    them)."""
     from rsmcrt_tpu_torch.transport import engine
 
     gathers = 0
@@ -1987,7 +2068,7 @@ def phase_gradient(dev, card, steps=48, chain_steps=24, k=8):
     draws = [engine.draw_step(gen, N_LANES, cfg, src, dev, scene)
              for _ in range(steps)]
     loss, g, t_f, t_b, peak, counts = _grad_run(dev, scene, grid, src, cfg,
-                                                draws, 0.5)
+                                                draws, 0.5, record)
     _check_grad_counts(counts, "absorber box")
     gathers += counts["gathers"]
     h = 5e-3
@@ -2083,15 +2164,16 @@ def _f64_sim(dev, scene, grid, src, n, eps):
         dep.deposit_kernel_launches, types
 
 
-def phase_f64(dev, card, n=100_000):
+def phase_f64(dev, card, n=50_000, n_pair=20_000):
     """float64 transport on the card at full width (32,768 lanes, 200^3):
     the scat_test sphere (tau 10, mus 10, mua 0, g 0, n 1) in float64 at
     eps = 1e-8, nscatt/photon 57.5 +- 1.0 at ``n`` photons; the refractive
     bench sphere in float32 (eps 1e-5) and then in float64 (eps 1e-8),
-    ``n`` photons each: fluence per photon within 5%, photons/s of each
-    (one pair: a second pair in reverse order would add two more runs of
-    ``n`` photons to the script's time limit).  The float64 runs' tallies are float64 and every deposit
-    hands the kernel float64 values."""
+    ``n_pair`` photons each: fluence per photon within 5%, photons/s of
+    each (one pair: a second pair in reverse order would add two more
+    runs of ``n_pair`` photons to the script's time limit).  The float64
+    runs' tallies are float64 and every deposit hands the kernel float64
+    values."""
     f64 = torch.float64
     scene, grid, src = _bench_sphere(dev, GRID, f64, 10.0, 0.0, 0.0, 1.0)
     tl, launched, wall, rate, launches, types = _f64_sim(
@@ -2110,7 +2192,7 @@ def phase_f64(dev, card, n=100_000):
         scene, grid, src = _bench_sphere(dev, GRID, dtype)
         eps = 1e-8 if dtype == f64 else 1e-5
         tl, launched, wall, rate, launches, types = _f64_sim(
-            dev, scene, grid, src, n, eps)
+            dev, scene, grid, src, n_pair, eps)
         if types != {(dtype, dtype)} or tl.jmean.dtype != dtype:
             raise AssertionError(f"{dtype} run deposited {types}")
         if dtype == f64:
@@ -2220,7 +2302,15 @@ def phase_checkpoint(dev, tmp, card):
     log(f"[checkpoint] npz round trip: {sorted(back)} [{card}]")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="phases 1-3, 23 and 24 only (the deposit kernels "
+                         "and the gradient run whose gathers phase 23 "
+                         "times); prints no result line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
         return 2
@@ -2231,8 +2321,14 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     deposit = phase_kernel(dev, card)
-    extra = phase_kernel_f64_gather(dev, card,
-                                    deposit["capture_jmean"]["inputs"])
+    jmean_rows = deposit["capture_jmean"]["inputs"]
+    f64 = phase_kernel_f64(dev, card, jmean_rows)
+    box_gathers = []
+    if args.kernels_only:
+        phase_gradient(dev, card, box_gathers)
+        phase_gather(dev, card, jmean_rows, box_gathers[len(box_gathers) // 2])
+        log(f"[done] kernel phases in {time.perf_counter() - t_start:.1f} s")
+        return 0
     signed = phase_signed(dev, card)
     window = phase_window(dev, card)
     window_launches = phase_window_path(dev, card)
@@ -2242,10 +2338,10 @@ def main() -> int:
         try:
             # the gate phases run beside the children's CPU runs, the
             # measured runs (sphere, slab, bench path, omg) mostly after
-            phase_physics(dev, card)
+            launches = phase_physics(dev, card)
             phase_card_vs_cpu(dev, tmp, card)
             phase_detectors_card_vs_cpu(dev, tmp, card)
-            launches = phase_slice(dev, tmp, card)
+            launches += phase_slice(dev, tmp, card)
             analog = phase_validation(dev, tmp, card)
             phase_fluenceless(dev, card)
             launches += phase_omg(dev, tmp, card)
@@ -2258,7 +2354,9 @@ def main() -> int:
             phase_plain_card_vs_cpu(dev, tmp, card, children[1])
             launches += phase_escape(dev, tmp, card)
             launches += phase_inverse(dev, tmp, card)
-            gather_launches = phase_gradient(dev, card)
+            gather_launches = phase_gradient(dev, card, box_gathers)
+            gather = phase_gather(dev, card, jmean_rows,
+                                  box_gathers[len(box_gathers) // 2])
             f64_launches = phase_f64(dev, card)
             phase_checkpoint(dev, tmp, card)
         finally:
@@ -2299,12 +2397,12 @@ def main() -> int:
         "source": "rsmcrt_tpu_torch/csrc/deposit.cu",
         "replaces": "rsmcrt_tpu/transport/deposit.py:47",
         "launches": f64_launches,
-        "max_abs_err": extra["f64_capture_jmean"]["err"],
-        "ms": extra["f64_capture_jmean"]["ms"],
-        "plain_ms": extra["f64_capture_jmean"]["plain_ms"],
-        "bound_ms": extra["f64_capture_jmean"]["bound_ms"],
+        "max_abs_err": f64["capture_jmean"]["err"],
+        "ms": f64["capture_jmean"]["ms"],
+        "plain_ms": f64["capture_jmean"]["plain_ms"],
+        "bound_ms": f64["capture_jmean"]["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": extra["f64_capture_jmean"]["library_ms"],
+        "library_ms": f64["capture_jmean"]["library_ms"],
     }, {
         "name": "deposit_gather",
         "route": "cuda",
@@ -2313,12 +2411,12 @@ def main() -> int:
         # is XLA's scatter-add transpose)
         "replaces": "rsmcrt_tpu/transport/deposit.py:47",
         "launches": gather_launches,
-        "max_abs_err": extra["gather"]["err"],
-        "ms": extra["gather"]["ms"],
-        "plain_ms": extra["gather"]["plain_ms"],
-        "bound_ms": extra["gather"]["bound_ms"],
+        "max_abs_err": gather["capture_f32"]["err"],
+        "ms": gather["capture_f32"]["ms"],
+        "plain_ms": gather["capture_f32"]["plain_ms"],
+        "bound_ms": gather["capture_f32"]["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": extra["gather"]["library_ms"],
+        "library_ms": gather["capture_f32"]["library_ms"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -102,7 +102,7 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [ptr, ptr, ptr, i64, i64, i32, i32, i32, ptr, ptr]
         fn.restype = ctypes.c_int
         fn = lib.rsmcrt_deposit_gather
-        fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr]
+        fn.argtypes = [ptr, ptr, i64, ptr, ptr, i64, i64, i32, i32, ptr]
         fn.restype = ctypes.c_int
         fn = lib.rsmcrt_deposit_window
         fn.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, i32, i32, i32, ptr,

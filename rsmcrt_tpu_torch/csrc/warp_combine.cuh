@@ -22,17 +22,29 @@
 // reads as (absent_idx, 0).  With `vec` (both pointers 16-byte aligned;
 // base is a multiple of 4) a whole window comes in as one int4 load a lane
 // and one float4 (float) or two double2 (double) loads, else as scalar
-// loads.
+// loads.  STREAM makes every load a streaming one (ld.global.cs: evict
+// first from L1 and L2), for rows read once that should not push the
+// tally out of L2.
+template <bool STREAM, typename P>
+__device__ __forceinline__ P load1(const P* __restrict__ p) {
+  if constexpr (STREAM) return __ldcs(p);
+  return *p;
+}
+
+template <bool STREAM>
 __device__ __forceinline__ void load_vals4(const float* __restrict__ val,
                                            int64_t r, float (&v)[4]) {
-  const float4 b = *reinterpret_cast<const float4*>(val + r);
+  const float4 b = load1<STREAM>(reinterpret_cast<const float4*>(val + r));
   v[0] = b.x; v[1] = b.y; v[2] = b.z; v[3] = b.w;
 }
 
+template <bool STREAM>
 __device__ __forceinline__ void load_vals4(const double* __restrict__ val,
                                            int64_t r, double (&v)[4]) {
-  const double2 b0 = *reinterpret_cast<const double2*>(val + r);
-  const double2 b1 = *reinterpret_cast<const double2*>(val + r + 2);
+  const double2 b0 =
+      load1<STREAM>(reinterpret_cast<const double2*>(val + r));
+  const double2 b1 =
+      load1<STREAM>(reinterpret_cast<const double2*>(val + r + 2));
   v[0] = b0.x; v[1] = b0.y; v[2] = b1.x; v[3] = b1.y;
 }
 
@@ -48,23 +60,23 @@ __device__ __forceinline__ void store_vals4(double* stage, int t,
   reinterpret_cast<double2*>(stage)[2 * t + 1] = make_double2(v[2], v[3]);
 }
 
-template <typename T>
+template <typename T, bool STREAM = false>
 __device__ __forceinline__ void load_lane_rows(
     const int32_t* __restrict__ idx, const T* __restrict__ val,
     int64_t base, int64_t lim, bool vec, int32_t absent_idx,
     int32_t (&j)[4], T (&v)[4]) {
   const int64_t r = base + 4 * (threadIdx.x & 31);
   if (vec && base + 128 <= lim) {
-    const int4 a = *reinterpret_cast<const int4*>(idx + r);
+    const int4 a = load1<STREAM>(reinterpret_cast<const int4*>(idx + r));
     j[0] = a.x; j[1] = a.y; j[2] = a.z; j[3] = a.w;
-    load_vals4(val, r, v);
+    load_vals4<STREAM>(val, r, v);
     return;
   }
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
     const bool in = r + s < lim;
-    j[s] = in ? idx[r + s] : absent_idx;
-    v[s] = in ? val[r + s] : T(0);
+    j[s] = in ? load1<STREAM>(idx + r + s) : absent_idx;
+    v[s] = in ? load1<STREAM>(val + r + s) : T(0);
   }
 }
 
@@ -74,14 +86,14 @@ __device__ __forceinline__ void load_lane_rows(
 // 16-byte loads and transposed through the warp's `stage` (128 ints and
 // 128 values of shared memory, 16-byte aligned); otherwise each slot is
 // one coalesced scalar load.
-template <typename T>
+template <typename T, bool STREAM = false>
 __device__ __forceinline__ void load_slot_rows(
     const int32_t* __restrict__ idx, const T* __restrict__ val,
     int64_t base, int64_t lim, bool vec, int32_t absent_idx,
     int32_t* stage_j, T* stage_v, int32_t (&j)[4], T (&v)[4]) {
   const int t = threadIdx.x & 31;
   if (vec && base + 128 <= lim) {
-    load_lane_rows(idx, val, base, lim, true, absent_idx, j, v);
+    load_lane_rows<T, STREAM>(idx, val, base, lim, true, absent_idx, j, v);
     reinterpret_cast<int4*>(stage_j)[t] = make_int4(j[0], j[1], j[2], j[3]);
     store_vals4(stage_v, t, v);
     __syncwarp();
@@ -97,8 +109,8 @@ __device__ __forceinline__ void load_slot_rows(
   for (int s = 0; s < 4; ++s) {
     const int64_t row = base + 32 * s + t;
     const bool in = row < lim;
-    j[s] = in ? idx[row] : absent_idx;
-    v[s] = in ? val[row] : T(0);
+    j[s] = in ? load1<STREAM>(idx + row) : absent_idx;
+    v[s] = in ? load1<STREAM>(val + row) : T(0);
   }
 }
 
@@ -142,6 +154,22 @@ __device__ __forceinline__ T group_sum(unsigned grp, T v) {
   return s;
 }
 
+// The sum of `v` over the warp, in every lane.
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_WARP, v, o);
+  return v;
+}
+
+// The one index every kept lane holds, or -1 when the kept lanes hold more
+// than one index or no lane is kept (kept indices are >= 0).
+__device__ __forceinline__ int32_t warp_one_index(int32_t j, bool ok) {
+  const int lo = __reduce_min_sync(FULL_WARP, ok ? j : INT_MAX);
+  const int hi = __reduce_max_sync(FULL_WARP, ok ? j : INT_MIN);
+  return lo == hi ? lo : -1;
+}
+
 // Warp combining of equal indices: the lanes with `ok` set and equal `j`
 // form a group; the group's lowest lane gets the group's sum in *sum and
 // returns true, every other lane false.  Three tiers, cheapest first:
@@ -160,13 +188,8 @@ __device__ __forceinline__ bool warp_combine(int32_t j, T v, bool ok,
   const int lane = threadIdx.x & 31;
   const unsigned kept = __ballot_sync(FULL_WARP, ok);
   if (kept == 0u) return false;
-  const int lo = __reduce_min_sync(FULL_WARP, ok ? j : INT_MAX);
-  const int hi = __reduce_max_sync(FULL_WARP, ok ? j : INT_MIN);
-  if (lo == hi) {
-    T s = ok ? v : T(0);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL_WARP, s, o);
-    *sum = s;
+  if (warp_one_index(j, ok) >= 0) {
+    *sum = warp_sum(ok ? v : T(0));
     return lane == __ffs(kept) - 1;
   }
   const unsigned bucket = ((unsigned)j * 2654435761u) >> 27;

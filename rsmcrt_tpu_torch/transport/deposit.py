@@ -129,11 +129,11 @@ def deposit_add_plain(tally_flat: torch.Tensor, flat_idx: torch.Tensor,
                                  _as_dot(val[live], dot_dtype))
 
 
-def _check(tally_flat, flat_idx, val):
+def _check(tally_flat, flat_idx, val, contiguous=True):
     if tally_flat.ndim != 1 or tally_flat.dtype not in (torch.float32,
                                                         torch.float64):
         raise TypeError("tally_flat must be a 1-D float32 or float64 tensor")
-    if not tally_flat.is_contiguous():
+    if contiguous and not tally_flat.is_contiguous():
         raise ValueError("tally_flat must be contiguous")
     if flat_idx.dtype != torch.int32 or val.dtype != tally_flat.dtype:
         raise TypeError(f"flat_idx must be int32 and val {tally_flat.dtype} "
@@ -241,23 +241,35 @@ def deposit_gather_plain(grad_tally: torch.Tensor, flat_idx: torch.Tensor,
                        .reshape(safe.shape), 0.0)
 
 
+def gather_operand(grad_tally: torch.Tensor):
+    """``(tensor, stride)`` as the gather kernel reads a 1-D
+    ``grad_tally``: an expanded gradient (stride 0, as the backward of a
+    sum hands it) is read as its one value, a contiguous one as it is;
+    any other layout is made contiguous first."""
+    if grad_tally.stride(0) in (0, 1):
+        return grad_tally, grad_tally.stride(0)
+    return grad_tally.contiguous(), 1
+
+
 def deposit_gather(grad_tally: torch.Tensor, flat_idx: torch.Tensor,
                    val: torch.Tensor, signed: bool = False) -> torch.Tensor:
     """The backward of :func:`deposit_add_` for ``val``: a fresh tensor of
     ``val``'s shape holding ``grad_tally[flat_idx]`` on every row the
     deposit keeps (``val > 0``; with ``signed`` every finite ``val !=
     0``) whose index lies in the tally, 0 elsewhere.  On a CUDA tensor it
-    launches ``csrc/deposit.cu``'s ``deposit_gather_kernel`` (one thread a
-    row); on a CPU tensor it runs :func:`deposit_gather_plain`."""
+    launches ``csrc/deposit.cu``'s ``deposit_gather_kernel`` (a warp a
+    window of 128 rows, four loads a lane in flight; an expanded gradient
+    is never materialised, see :func:`gather_operand`); on a CPU tensor
+    it runs :func:`deposit_gather_plain`."""
     global gather_kernel_launches, gather_plain_calls
-    g = grad_tally.contiguous()  # an expanded gradient has stride 0
-    _check(g, flat_idx, val)
-    dev = g.device
+    _check(grad_tally, flat_idx, val, contiguous=False)
+    dev = grad_tally.device
     if dev.type == "cpu":
         gather_plain_calls += 1
-        return deposit_gather_plain(g, flat_idx, val, signed)
+        return deposit_gather_plain(grad_tally, flat_idx, val, signed)
     if dev.type != "cuda":
         raise NotImplementedError(f"no gather kernel for {dev.type}")
+    g, stride = gather_operand(grad_tally)
     idx = flat_idx.reshape(-1).contiguous()
     v = val.reshape(-1).contiguous()
     out = torch.empty_like(v)
@@ -268,8 +280,8 @@ def deposit_gather(grad_tally: torch.Tensor, flat_idx: torch.Tensor,
     lib = _build.load()
     with torch.cuda.device(dev):
         rc = lib.rsmcrt_deposit_gather(
-            out.data_ptr(), g.data_ptr(), idx.data_ptr(), v.data_ptr(),
-            idx.numel(), g.numel(), int(signed),
+            out.data_ptr(), g.data_ptr(), stride, idx.data_ptr(),
+            v.data_ptr(), idx.numel(), g.shape[0], int(signed),
             int(g.dtype == torch.float64),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

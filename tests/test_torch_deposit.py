@@ -26,6 +26,16 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _at(t, offset, device):
+    """``t`` on ``device``, ``offset`` elements into a fresh buffer: with
+    ``offset`` 1 the pointer sits 4 or 8 bytes past a 16-byte boundary,
+    so the kernel takes its scalar loads (a sliced CPU tensor copied to
+    the card would start aligned again)."""
+    out = torch.empty(t.numel() + offset, dtype=t.dtype,
+                      device=device)[offset:]
+    return out.copy_(t)
+
+
 def _clustered(rng):
     shape = (24, 24, 16)
     n = 512
@@ -167,6 +177,75 @@ def test_deposit_add_rejects_bad_arguments():
                           torch.ones(4))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("layout", ["expanded", "expanded_0d", "contiguous",
+                                    "every_2nd", "every_3rd"])
+def test_gather_operand_reads_stride_0_and_1_as_they_are(layout, dtype):
+    """An expanded gradient keeps stride 0 and its storage (one value,
+    never materialised), a contiguous one stride 1 and its tensor; any
+    other stride is made contiguous, with the same values."""
+    tdt = getattr(torch, dtype)
+    base = torch.arange(3000, dtype=tdt)
+    grad = {"expanded": torch.full((1,), 2.5, dtype=tdt).expand(1000),
+            "expanded_0d": torch.full((), 2.5, dtype=tdt).expand(1000),
+            "contiguous": base[:1000],
+            "every_2nd": base[::2][:1000],
+            "every_3rd": base[::3]}[layout]
+    g, s = tdep.gather_operand(grad)
+    assert g.shape == grad.shape and torch.equal(g, grad)
+    if layout.startswith("expanded"):
+        assert s == 0 and g.data_ptr() == grad.data_ptr()
+        assert g.untyped_storage().nbytes() == grad.element_size()
+    elif layout == "contiguous":
+        assert s == 1 and g is grad
+    else:
+        assert s == 1 and g.is_contiguous()
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_gather_of_an_expanded_gradient_on_cpu(dtype, signed):
+    """``deposit_gather`` on the CPU with the expanded gradient the
+    backward of a sum hands it equals the plain twin on the materialised
+    gradient, row by row (kept rows in range get the value, all others
+    0)."""
+    tdt = getattr(torch, dtype)
+    idx = torch.tensor([0, 5, -1, 12, 3, 3, 9], dtype=torch.int32)
+    val = torch.tensor([1.0, 0.0, 2.0, 1.0, -1.0, float("nan"), 0.5],
+                       dtype=tdt)
+    grad = torch.full((), 0.125, dtype=tdt).expand(10)
+    before = tdep.gather_plain_calls
+    got = tdep.deposit_gather(grad, idx, val, signed=signed)
+    assert tdep.gather_plain_calls == before + 1
+    want = tdep.deposit_gather_plain(grad.contiguous(), idx, val, signed)
+    assert torch.equal(got, want)
+    kept = ([0.125, 0.0, 0.0, 0.0, 0.125, 0.0, 0.125] if signed else
+            [0.125, 0.0, 0.0, 0.0, 0.0, 0.0, 0.125])
+    assert got.tolist() == kept
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_gather_of_an_expanded_gradient_is_the_plain_backward(dtype,
+                                                               signed):
+    """``deposit_gather`` of the expanded gradient that the backward of a
+    sum hands it equals the gradient autograd takes through the plain
+    twin on the CPU: the gather is the deposit's transpose."""
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(5)
+    n_cells, n = 50, 203
+    idx = torch.as_tensor(rng.integers(0, n_cells, n).astype(np.int32))
+    val = torch.as_tensor(rng.uniform(-0.5, 1.0, n)).to(tdt)
+    val[::17] = float("nan")
+    val.requires_grad_(True)
+    tally = tdep.deposit_add_(torch.zeros(n_cells, dtype=tdt), idx, val,
+                              signed=signed)
+    (want,) = torch.autograd.grad(tally.sum(), val)
+    ones = torch.ones((), dtype=tdt).expand(n_cells)
+    got = tdep.deposit_gather(ones, idx, val.detach(), signed)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain(cuda_device):
     rng = np.random.default_rng(12)
@@ -204,6 +283,10 @@ def _design_case(case, rng):
         idx = np.repeat(rng.integers(0, n_cells, n),
                         rng.integers(1, 10, n))[:n]
         val = rng.uniform(0.0, 1.0, n)
+    elif case == "long_runs":  # one index a slot, a warp, a block or more
+        idx = np.repeat(rng.integers(0, n_cells, n),
+                        rng.integers(20, 3000, n))[:n]
+        val = rng.uniform(-0.2, 1.0, n)
     else:  # a few hot cells, NaN and negative values
         idx = rng.integers(0, 40, n)
         val = rng.uniform(-1.0, 1.0, n)
@@ -228,8 +311,8 @@ def test_cuda_kernel_designs_match_plain(cuda_device, case, dtype, offset):
     want = tdep.deposit_add_plain(torch.zeros(n_cells), idx, val, tdt)
     before = tdep.deposit_kernel_launches
     got = tdep.deposit_add_(torch.zeros(n_cells, device=cuda_device),
-                            idx.to(cuda_device), val.to(cuda_device),
-                            tdt).cpu()
+                            _at(idx, offset, cuda_device),
+                            _at(val, offset, cuda_device), tdt).cpu()
     assert tdep.deposit_kernel_launches == before + 1
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
@@ -266,29 +349,33 @@ def _signed_case(case, rng):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("case", ["cancelling", "runs", "scattered"])
-def test_cuda_signed_kernel_matches_plain(cuda_device, case, offset):
+def test_cuda_signed_kernel_matches_plain(cuda_device, case, offset, dtype):
     """The signed instantiation keeps every finite non-zero row, as its
-    plain twin does: atol 1e-4 of the largest cell of |val| (the float
-    atomics add in a run-dependent order, and a cell's terms may cancel);
-    the unsigned one still drops the negative rows."""
+    plain twin does: atol 1e-4 (float32) or 1e-12 (float64) of the
+    largest cell of |val| (atomics add in a run-dependent order, and a
+    cell's terms may cancel); the unsigned one still drops the negative
+    rows."""
     n_cells, idx, val = _signed_case(case, np.random.default_rng(43))
-    idx, val = idx[offset:], val[offset:]
+    idx, val = idx[offset:], val[offset:].to(getattr(torch, dtype))
+    atol = 1e-4 if dtype == "float32" else 1e-12
     keep = torch.isfinite(val) & (val != 0.0)
-    scale = float(tdep.deposit_add_plain(torch.zeros(n_cells), idx,
+    zeros = torch.zeros(n_cells, dtype=val.dtype)
+    scale = float(tdep.deposit_add_plain(zeros.clone(), idx,
                                          torch.where(keep, val.abs(), 0.0)
                                          ).max())
     for signed in (True, False):
-        want = tdep.deposit_add_plain(torch.zeros(n_cells), idx, val,
-                                      signed=signed)
+        want = tdep.deposit_add_plain(zeros.clone(), idx, val, signed=signed)
         before = tdep.deposit_kernel_launches
-        got = tdep.deposit_add_(torch.zeros(n_cells, device=cuda_device),
-                                idx.to(cuda_device), val.to(cuda_device),
+        got = tdep.deposit_add_(zeros.to(cuda_device),
+                                _at(idx, offset, cuda_device),
+                                _at(val, offset, cuda_device),
                                 signed=signed).cpu()
         assert tdep.deposit_kernel_launches == before + 1
         # +inf rows are kept without ``signed``: their cells are inf in both
-        torch.testing.assert_close(got, want, rtol=0.0, atol=1e-4 * scale)
+        torch.testing.assert_close(got, want, rtol=0.0, atol=atol * scale)
         if not signed:
             assert not bool((got < 0).any())
         elif case != "cancelling":
@@ -297,11 +384,12 @@ def test_cuda_signed_kernel_matches_plain(cuda_device, case, offset):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("offset", [0, 1])
-def test_cuda_kernel_counts_each_bad_row(cuda_device, offset):
+def test_cuda_kernel_counts_each_bad_row(cuda_device, offset, dtype):
     """Live rows with an index outside the tally are counted once a row,
     also when a warp's rows share the bad index; rows with val <= 0 are
-    not counted; nothing is written for them."""
+    not counted; nothing is written for them.  The same in float64."""
     rng = np.random.default_rng(42)
     n_cells, n = 1000, 4099
     idx = rng.integers(0, n_cells, n).astype(np.int32)
@@ -311,17 +399,22 @@ def test_cuda_kernel_counts_each_bad_row(cuda_device, offset):
     idx[1000::97] = n_cells + 12345
     val[64:80] = 0.0  # dead under a bad index: not counted
     val[1000::194] = -1.0
-    ti, tv = torch.as_tensor(idx)[offset:], torch.as_tensor(val)[offset:]
+    tdt = getattr(torch, dtype)
+    ti = torch.as_tensor(idx)[offset:]
+    tv = torch.as_tensor(val)[offset:].to(tdt)
     bad = ((ti < 0) | (ti >= n_cells)) & (tv > 0)
     before = tdep.out_of_range_count(cuda_device)
-    got = tdep.deposit_add_(torch.zeros(n_cells, device=cuda_device),
-                            ti.to(cuda_device), tv.to(cuda_device))
+    got = tdep.deposit_add_(torch.zeros(n_cells, dtype=tdt,
+                                        device=cuda_device),
+                            _at(ti, offset, cuda_device),
+                            _at(tv, offset, cuda_device))
     torch.cuda.synchronize(cuda_device)
     assert tdep.out_of_range_count(cuda_device) == before + int(bad.sum())
-    want = tdep.deposit_add_plain(torch.zeros(n_cells),
+    want = tdep.deposit_add_plain(torch.zeros(n_cells, dtype=tdt),
                                   torch.where(bad, 0, ti),
                                   torch.where(bad, 0.0, tv))
-    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    tol = 1e-5 if dtype == "float32" else 1e-12
+    torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
     # leave the card's count at 0 for the tests that read it whole
     tdep._bad_counter(cuda_device).zero_()
 
@@ -329,7 +422,7 @@ def test_cuda_kernel_counts_each_bad_row(cuda_device, offset):
 @pytest.mark.cuda
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("case", ["one_cell", "distinct", "runs",
-                                  "nan_negative"])
+                                  "long_runs", "nan_negative"])
 def test_cuda_f64_kernel_matches_plain(cuda_device, case, offset):
     """The double instantiation on the same rows in float64: rtol 1e-12
     of the largest cell (float64 atomics add in a run-dependent order)."""
@@ -340,11 +433,46 @@ def test_cuda_f64_kernel_matches_plain(cuda_device, case, offset):
     before = tdep.deposit_kernel_launches
     got = tdep.deposit_add_(
         torch.zeros(n_cells, dtype=torch.float64, device=cuda_device),
-        idx.to(cuda_device), val.to(cuda_device)).cpu()
+        _at(idx, offset, cuda_device), _at(val, offset, cuda_device)).cpu()
     assert tdep.deposit_kernel_launches == before + 1
     assert got.dtype == torch.float64
     err = float((got - want).abs().max())
     assert err <= 1e-12 * float(want.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_f64_kernel_on_a_full_tally_matches_plain(cuda_device, offset):
+    """The double deposit over a 200^3 float64 tally (64 MB): rows spread
+    over the tally, a hot cell taking a tenth of them (merged across each
+    block), NaN, negative and out-of-range rows.  rtol 1e-12 of the
+    largest cell; each bad row counted once; one launch."""
+    rng = np.random.default_rng(44)
+    n_cells, n = 200 ** 3, 300_007
+    idx = rng.integers(0, n_cells, n)
+    idx[: n // 10] = n_cells // 2
+    idx[n // 10: n // 10 + 64] = n_cells // 2 - 1
+    idx[5000::1013] = n_cells + 3
+    idx[6000::2027] = -1
+    val = rng.uniform(-0.2, 1.0, n)
+    val[rng.uniform(size=n) < 0.02] = np.nan
+    ti = torch.as_tensor(idx.astype(np.int32))[offset:]
+    tv = torch.as_tensor(val)[offset:]
+    bad = ((ti < 0) | (ti >= n_cells)) & (tv > 0)
+    want = tdep.deposit_add_plain(torch.zeros(n_cells, dtype=torch.float64),
+                                  torch.where(bad, 0, ti),
+                                  torch.where(bad, 0.0, tv))
+    tally = torch.zeros(n_cells, dtype=torch.float64, device=cuda_device)
+    before = tdep.deposit_kernel_launches
+    bad_before = tdep.out_of_range_count(cuda_device)
+    tdep.deposit_add_(tally, _at(ti, offset, cuda_device),
+                      _at(tv, offset, cuda_device))
+    torch.cuda.synchronize(cuda_device)
+    assert tdep.deposit_kernel_launches == before + 1
+    assert tdep.out_of_range_count(cuda_device) == bad_before + int(bad.sum())
+    err = float((tally.cpu() - want).abs().max())
+    assert err <= 1e-12 * float(want.abs().max()), err
+    tdep._bad_counter(cuda_device).zero_()
 
 
 @pytest.mark.cuda
@@ -365,16 +493,61 @@ def test_cuda_gather_matches_plain(cuda_device, dtype, signed, offset):
                        dtype=tdt)
     want = tdep.deposit_gather_plain(grad, idx, val, signed)
     before = tdep.gather_kernel_launches
-    got = tdep.deposit_gather(grad.to(cuda_device), idx.to(cuda_device),
-                              val.to(cuda_device), signed).cpu()
+    i, v = _at(idx, offset, cuda_device), _at(val, offset, cuda_device)
+    got = tdep.deposit_gather(grad.to(cuda_device), i, v, signed).cpu()
     assert tdep.gather_kernel_launches == before + 1
     assert torch.equal(got, want)
     # an expanded (stride 0) gradient, as the backward of a sum hands it
     ones = torch.ones((), dtype=tdt, device=cuda_device).expand(n_cells)
-    got = tdep.deposit_gather(ones, idx.to(cuda_device),
-                              val.to(cuda_device), signed).cpu()
+    got = tdep.deposit_gather(ones, i, v, signed).cpu()
     assert torch.equal(got, tdep.deposit_gather_plain(
         torch.ones(n_cells, dtype=tdt), idx, val, signed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [0, 1, 2])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("n", [262_144, 1_001])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cuda_gather_layouts_match_plain(cuda_device, dtype, n, offset,
+                                         stride):
+    """The gather's vector and scalar paths: phase 24's 262,144 rows and
+    a length that is not a multiple of 4, aligned and unaligned (``offset``
+    1 and 2) pointers, an expanded (stride 0), a contiguous and a strided
+    gradient; equal to the plain twin on the materialised gradient.  An
+    expanded gradient is never materialised: the call allocates its
+    output and nothing else."""
+    rng = np.random.default_rng(17)
+    n_cells = 64 ** 3
+    tdt = getattr(torch, dtype)
+    idx = torch.as_tensor(rng.integers(-5, n_cells + 5, n).astype(np.int32))
+    val = torch.as_tensor(rng.uniform(-0.5, 1.0, n)).to(tdt)
+    if stride == 0:
+        grad = torch.full((1,), 0.75, dtype=tdt).expand(n_cells)
+    else:
+        grad = torch.randn(n_cells * stride, dtype=tdt,
+                           generator=torch.Generator().manual_seed(3))
+        grad = grad[::stride]
+    want = tdep.deposit_gather_plain(grad.contiguous(), idx, val)
+    i, v = _at(idx, offset, cuda_device), _at(val, offset, cuda_device)
+    g = grad.to(cuda_device)
+    if stride == 0:
+        g = g[:1].expand(n_cells)
+    else:  # a strided view of the card's own buffer
+        g = torch.empty(n_cells * stride, dtype=tdt,
+                        device=cuda_device)[::stride]
+        g.copy_(grad)
+    assert g.stride(0) == stride
+    torch.cuda.synchronize(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    held = torch.cuda.memory_allocated(cuda_device)
+    before = tdep.gather_kernel_launches
+    got = tdep.deposit_gather(g, i, v)
+    extra = torch.cuda.max_memory_allocated(cuda_device) - held
+    assert tdep.gather_kernel_launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    if stride == 0:
+        assert extra <= got.numel() * got.element_size() + 512, extra
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from rsmcrt_tpu_torch.transport import deposit as tdep
+from test_torch_deposit import _at
 
 torch.set_num_threads(1)
 
@@ -335,7 +336,7 @@ def test_cuda_window_hash_table_matches_plain(cuda_device, case, dtype,
     keys, val = keys[offset:], val[offset:]
     tdt = DTYPES[dtype]
     want = tdep.deposit_window_packed_plain(shape, keys, val, tdt)
-    kd, vd = keys.to(cuda_device), val.to(cuda_device)
+    kd, vd = _at(keys, offset, cuda_device), _at(val, offset, cuda_device)
     before = tdep.window_kernel_launches
     got = tdep.deposit_window_packed(shape, kd, vd, chunk=chunk,
                                      dot_dtype=tdt).cpu()
@@ -373,8 +374,9 @@ def test_cuda_window_counts_each_bad_key(cuda_device, offset):
     inside = (x < 20) & (y < 30) & (z < 40)
     n_bad = int((live & ~inside)[offset:].sum())
     before = tdep.out_of_range_count(cuda_device)
-    got = tdep.deposit_window_packed(shape, keys.to(cuda_device),
-                                     val.to(cuda_device), chunk=256)
+    got = tdep.deposit_window_packed(shape, _at(keys, offset, cuda_device),
+                                     _at(val, offset, cuda_device),
+                                     chunk=256)
     torch.cuda.synchronize(cuda_device)
     assert tdep.out_of_range_count(cuda_device) == before + n_bad
     before_cpu = tdep.out_of_range_count("cpu")
