@@ -3,8 +3,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only
 
-``--kernels-only`` runs phases 1-3, 23 and 24 (the deposit kernels and the
-gradient run whose gathers phase 23 times) and prints no result line.
+``--kernels-only`` runs phases 1-3, 23, 27 and 24 (the deposit kernels,
+the probe kernels and the gradient run whose gathers phase 23 times) and
+prints no result line.
 What bounds the deposit kernels is measured apart, by
 ``python -m rsmcrt_tpu_torch.profile_deposit``.
 
@@ -140,7 +141,7 @@ Phases (each raises on failure; the exit code is non-zero on any):
     went through the autograd Function; the full-width absorber box's
     gathers are kept for phase 23.
 25. float64 at full width (32,768 lanes, 200^3, K = 64): the scat_test
-    sphere in float64 at eps = 1e-8 (nscatt/photon 57.5 +- 1.0 at 50,000
+    sphere in float64 at eps = 1e-8 (nscatt/photon 57.5 +- 1.0 at 20,000
     photons) and the refractive bench sphere in float32 and then in
     float64 (20,000 photons each): fluence per photon within 5%,
     photons/s of both; the float64 tallies are float64 and every deposit
@@ -149,6 +150,28 @@ Phases (each raises on failure; the exit code is non-zero on any):
     (1,800 of 3,000 photons through ``kernels.checkpoint_now``, the resume
     launches 1,200, within 10% of a full run) and the npz checkpoint's
     round trip with res/test_dects.toml's detector bank.
+27. the deposit probes of the TPU tools (right after phase 23): the
+    serial probe (``deposit_probes.serial_deposit``) against its plain
+    twin on the tool's 1,048,576 rows into 200^3 (blocks of 4,096), on
+    1,000 fewer rows (the partial block dropped) and at the tool's check
+    size, atol 1e-4 + rtol 1e-5 of the largest cell, and three
+    out-of-range rows (the wrapper raises); the tile probe
+    (``onehot_tile_accumulate``) on the tool's 512 chunks of 1,024 rows
+    into 400 x 128, and with rows out of range, rtol 1e-5; each timed
+    beside its plain twin, one ``index_add_`` into a fresh grid or tile
+    and the byte bound, with the L2 warm and cold.  Then the port-side
+    tools (``rsmcrt_tpu_torch.tools.profile_deposit_pallas_serial`` and
+    ``profile_deposit_design``) at their default sizes, their kernel
+    launches counted.
+28. the sharded path on the one card: ``simulate_distributed`` on
+    res/scat_test.toml (20,000 photons, nscatt/photon 57.5 +- 1.0) in
+    three spawned children, one with NCCL at world size 1 and a gloo pair
+    sharing the card (both ranks must hold the same reduced tallies),
+    while this process runs ``simulate_sharded_chunked`` on
+    res/sphere.toml with two shards of 32,768 lanes and 100,000 photons
+    (every photon launched, fluence per photon within 5% of phase 6's
+    one-shard run); photons/s of each (of runs beside each other), every
+    deposit through the kernel.
 
 Phase 17's wavelengths are those the run launched: the engine's source
 sampler is wrapped for that run (``_launched_wavelengths``).
@@ -161,7 +184,8 @@ runs were cut from 100,000 photons to 50,000 (the script had taken
 853.4 s and 1,095.1 s of its 1,200 s limit in two runs of one tree on an
 H100 80GB HBM3 at 700 W), then its refractive pair to 20,000 (1,028.1 s
 on a slower host; every phase took 1.3-2.9x its time in a 665.1 s run
-of the same phases).
+of the same phases), and then, to make room for phase 28 (about a minute),
+its scat_test run to 20,000 photons (phase 4's size and gate).
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -731,7 +755,7 @@ def phase_slice(dev, tmp, card, n=250_000):
     vol = tmp / "data" / "jmean" / "fluence.nrrd"
     if not vol.exists():
         raise AssertionError("no fluence volume written")
-    return launches
+    return launches, float(tl.jmean.double().sum()) / res.launched
 
 
 def phase_validation(dev, tmp, card):
@@ -2164,7 +2188,7 @@ def _f64_sim(dev, scene, grid, src, n, eps):
         dep.deposit_kernel_launches, types
 
 
-def phase_f64(dev, card, n=50_000, n_pair=20_000):
+def phase_f64(dev, card, n=20_000, n_pair=20_000):
     """float64 transport on the card at full width (32,768 lanes, 200^3):
     the scat_test sphere (tau 10, mus 10, mua 0, g 0, n 1) in float64 at
     eps = 1e-8, nscatt/photon 57.5 +- 1.0 at ``n`` photons; the refractive
@@ -2302,14 +2326,340 @@ def phase_checkpoint(dev, tmp, card):
     log(f"[checkpoint] npz round trip: {sorted(back)} [{card}]")
 
 
+# --- phase 27: the deposit probes of the TPU tools --------------------------
+
+#: the serial probe's tool size: 1M rows into 200^3, blocks of 4,096
+PROBE_N, PROBE_BLOCK = 1 << 20, 4096
+#: the tile probe's tool size: 512 chunks of 1,024 rows into a 400 x 128
+#: tile
+TILE_C, TILE_H, TILE_CHUNKS = 1024, 400, 512
+
+
+def _probe_times(kernel, plain, library):
+    """``(kernel ms, plain ms, library ms, kernel cold ms, library cold
+    ms)``: warm, in turns (plain, kernel, kernel, plain), then with the L2
+    cold behind a spin kernel (``profile_deposit._cold_ms``)."""
+    from rsmcrt_tpu_torch.profile_deposit import _cold_ms
+
+    t_p1, t_k1, t_k2, t_p2 = (_time_ms(f) for f in (plain, kernel, kernel,
+                                                       plain))
+    t_lib = min(_time_ms(library) for _ in range(2))
+    cold_k, cold_lib = _cold_ms([kernel, library])
+    return min(t_k1, t_k2), min(t_p1, t_p2), t_lib, cold_k, cold_lib
+
+
+def phase_probes(dev, card):
+    """The two deposit probes against their plain twins at the tools'
+    sizes, each timed beside its twin, one ``index_add_`` into a fresh
+    grid or tile and its byte bound, with the L2 warm and cold; then each
+    port-side tool at its default size with the launches counted."""
+    from rsmcrt_tpu_torch.tools import profile_deposit_design as design
+    from rsmcrt_tpu_torch.tools import profile_deposit_pallas_serial as serial
+    from rsmcrt_tpu_torch.transport import deposit_probes as dp
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(27)
+    G = GRID ** 3
+    size = dp.padded_rows(G) * dp.LANES
+    idx = torch.randint(0, G, (PROBE_N,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    val = torch.rand(PROBE_N, generator=gen, device=dev)
+    rows = {}
+    cases = {"tool": (idx, val, G, PROBE_BLOCK),
+             # the tail of a partial block is dropped
+             "ragged": (idx[:-1000], val[:-1000], G, PROBE_BLOCK),
+             "check size": (idx[:4096] % 1024, val[:4096], 1024, 4096)}
+    for name, (i, v, g, block) in cases.items():
+        got = dp.serial_deposit(i, v, g, block)
+        want, n_bad = dp.serial_deposit_plain(i, v, g, block)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        n_rows = dp.counted_rows(i.numel(), block)
+        dropped = float(v[n_rows:].sum())
+        log(f"[probes] serial_deposit {name}: {i.numel()} rows ({n_rows} "
+            f"counted) into {g} cells, max_abs_err {err:.3e} (max cell "
+            f"{scale:.4g}), grid sum {float(got.double().sum()):.6g}, "
+            f"dropped tail {dropped:.6g}")
+        if n_bad or err > 1e-4 + 1e-5 * scale:
+            raise AssertionError(f"serial_deposit {name}: kernel vs plain "
+                                 f"{err}, {n_bad} bad rows")
+        if name == "tool":
+            rows["serial"] = {"err": err}
+    bad = idx.clone()
+    bad[[3, 1000, PROBE_N - 5000]] = torch.tensor(
+        [-1, size, 2**30], dtype=torch.int32, device=dev)
+    try:
+        dp.serial_deposit(bad, val, G, PROBE_BLOCK)
+    except ValueError as e:
+        if "3 rows" not in str(e):
+            raise
+        log(f"[probes] serial_deposit with 3 out-of-range rows: raised "
+            f"({e})")
+    else:
+        raise AssertionError("serial_deposit took out-of-range rows")
+    i_l = idx.long()
+    t = _probe_times(
+        lambda: dp.serial_deposit(idx, val, G, PROBE_BLOCK, check=False),
+        lambda: dp.serial_deposit_plain(idx, val, G, PROBE_BLOCK),
+        lambda: torch.zeros(size, device=dev).index_add_(0, i_l, val))
+    # each counted row's index and value read once, the grid written once
+    bound = _bound_ms(8 * PROBE_N + 4 * size)
+    rows["serial"].update(ms=t[0], plain_ms=t[1], library_ms=t[2],
+                          cold_ms=t[3], library_cold_ms=t[4], bound_ms=bound)
+    log(f"[probes] serial_deposit tool ({PROBE_N} rows into 200^3): kernel "
+        f"{t[0]:.4f} ms (L2 cold {t[3]:.4f}), plain {t[1]:.4f} ms, one "
+        f"index_add_ into a fresh grid {t[2]:.4f} ms (cold {t[4]:.4f}), "
+        f"bound {bound:.4f} ms [{card}]")
+
+    H, C, nc = TILE_H, TILE_C, TILE_CHUNKS
+    n = C * nc
+    flat = torch.randint(0, G, (n,), generator=gen, device=dev,
+                         dtype=torch.int32) % (H * 128)
+    hi = (flat // 128).reshape(nc, C)
+    lo = (flat % 128).reshape(nc, C)
+    v = torch.rand((nc, C), generator=gen, device=dev)
+    hi_b, lo_b = hi.clone(), lo.clone()
+    hi_b.view(-1)[::97] = -1
+    hi_b.view(-1)[5::89] = H + 3
+    lo_b.view(-1)[7::101] = 128
+    lo_b.view(-1)[11::103] = -4
+    for name, (a, b) in {"tool": (hi, lo),
+                         "out of range": (hi_b, lo_b)}.items():
+        got = dp.onehot_tile_accumulate(a, b, v, H)
+        want = dp.onehot_tile_accumulate_plain(a, b, v, H)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        ok = (a >= 0) & (a < H) & (b >= 0) & (b < 128)
+        log(f"[probes] onehot_tile_accumulate {name}: {n} rows "
+            f"({int(ok.sum())} in range) into {H} x 128, max_abs_err "
+            f"{err:.3e} (max cell "
+            f"{scale:.4g}), tile sum {float(got.double().sum()):.6g} vs "
+            f"rows in range {float(v[ok].double().sum()):.6g}")
+        if err > 1e-5 * scale:
+            raise AssertionError(f"onehot_tile_accumulate {name}: kernel vs "
+                                 f"plain {err}")
+        if name == "tool":
+            rows["onehot"] = {"err": err}
+    flat_l = flat.long()
+    vf = v.reshape(-1)
+    t = _probe_times(
+        lambda: dp.onehot_tile_accumulate(hi, lo, v, H),
+        lambda: dp.onehot_tile_accumulate_plain(hi, lo, v, H),
+        lambda: torch.zeros(H * 128, device=dev).index_add_(0, flat_l, vf))
+    # each row's hi, lo and value read once, the tile written once
+    bound = _bound_ms(12 * n + 4 * H * 128)
+    rows["onehot"].update(ms=t[0], plain_ms=t[1], library_ms=t[2],
+                          cold_ms=t[3], library_cold_ms=t[4], bound_ms=bound)
+    log(f"[probes] onehot_tile_accumulate tool ({n} rows into {H} x 128): "
+        f"kernel {t[0]:.4f} ms (L2 cold {t[3]:.4f}), plain {t[1]:.4f} ms, "
+        f"one index_add_ into a fresh tile {t[2]:.4f} ms (cold "
+        f"{t[4]:.4f}), bound {bound:.4f} ms [{card}]")
+
+    # the port-side tools at their default sizes: the probes' own path
+    for key, tool, argv in (("serial", serial, []), ("onehot", design, [])):
+        torch.cuda.synchronize()
+        dp.reset_counts()
+        t0 = time.perf_counter()
+        if tool.main(argv) != 0:
+            raise AssertionError(f"{tool.__name__} failed")
+        torch.cuda.synchronize()
+        launches = (dp.serial_kernel_launches if key == "serial"
+                    else dp.onehot_kernel_launches)
+        plain = dp.serial_plain_calls + dp.onehot_plain_calls
+        log(f"[probes] {tool.__name__}: {time.perf_counter() - t0:.2f} s, "
+            f"kernel launches {launches}, plain calls {plain}")
+        if launches <= 0 or plain != 0:
+            raise AssertionError(f"{tool.__name__} did not run its kernel")
+        rows[key]["launches"] = launches
+    return rows
+
+
+# --- phase 28: the sharded path ---------------------------------------------
+
+SHARDED_N, SCAT_N = 100_000, 20_000
+
+
+def _forward_cfg(parsed, n, lanes, dev):
+    """The ``TransportConfig`` ``kernels.run_MCRT`` builds for a forward
+    fluence run of ``n`` photons on ``lanes`` lanes."""
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.transport import engine
+
+    st = parsed.settings
+    return engine.TransportConfig(
+        nphotons=n, n_lanes=lanes, record_emission=True,
+        roulette_bounces=st.roulette_bounces,
+        roulette_chance=st.roulette_chance,
+        **kernels.fast_path_defaults(device=dev))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _distributed_scat(dev):
+    """``simulate_distributed`` on res/scat_test.toml (``SCAT_N`` photons
+    over the whole group, 32,768 lanes a shard) in an initialised process
+    group, on this rank's card: the run's numbers, with its deposit
+    launches counted."""
+    import hashlib
+
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.parallel import distributed as D
+    from rsmcrt_tpu_torch.transport import deposit as dep
+
+    parsed, scene = kernels.setup(SCAT, device=dev)
+    st = parsed.settings
+    cfg = _forward_cfg(parsed, SCAT_N, N_LANES, dev)
+    torch.cuda.synchronize()
+    dep.reset_counts()
+    t0 = time.perf_counter()
+    tl, _, launched, steps = D.simulate_distributed(
+        scene, parsed.source, st.grid, st.iseed, cfg,
+        bank=parsed.detectors, mesh=D.global_mesh())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    digest = hashlib.sha256()
+    for name in ("jmean", "absorb", "emission", "nscatt"):
+        digest.update(getattr(tl, name).cpu().numpy().tobytes())
+    return dict(launched=int(launched), steps=int(steps), wall=wall,
+                nscatt=float(tl.nscatt) / int(launched),
+                launches=dep.deposit_kernel_launches,
+                plain=dep.deposit_plain_calls, digest=digest.hexdigest(),
+                bad=dep.out_of_range_count(dev))
+
+
+def _scat_rank(backend, world, rank, port, out):
+    """One rank of phase 28's ``simulate_distributed`` runs on the one
+    card (a spawned child process): ``backend`` NCCL at world size 1 or
+    gloo at world size 2; the result to ``out`` (a .npz)."""
+    import datetime
+
+    from rsmcrt_tpu_torch.parallel import distributed as D
+
+    torch.set_num_threads(1)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    D.initialize(backend=backend, init_method=f"tcp://localhost:{port}",
+                 world_size=world, rank=rank,
+                 timeout=datetime.timedelta(seconds=300))
+    try:
+        res = _distributed_scat(dev)
+    finally:
+        torch.distributed.destroy_process_group()
+    np.savez(out, **res)
+
+
+def _check_distributed(what, r, card):
+    log(f"[sharded] {what}: {r['launched']} photons, {r['steps']} "
+        f"megasteps, {r['wall']:.2f} s, {r['launched'] / r['wall']:.1f} "
+        f"photons/s, nscatt/photon {r['nscatt']:.4f} (want 57.5 +- 1.0); "
+        f"deposit kernel launches {r['launches']}, plain calls "
+        f"{r['plain']} [{card}]")
+    if r["launched"] != SCAT_N or abs(r["nscatt"] - 57.5) >= 1.0:
+        raise AssertionError(f"{what}: {r['launched']} photons, nscatt "
+                             f"{r['nscatt']}")
+    if r["launches"] <= 0 or r["plain"] != 0 or r["bad"] != 0:
+        raise AssertionError(f"{what} did not deposit through the kernel")
+
+
+def phase_sharded(dev, tmp, card, slice_jmean):
+    """The sharded path on the one card.  Three spawned children run
+    ``simulate_distributed`` on res/scat_test.toml: one with NCCL at world
+    size 1 and a gloo pair (both ranks must hold the same reduced
+    tallies); beside them this process runs ``simulate_sharded_chunked``
+    on res/sphere.toml with two shards of 32,768 lanes and ``SHARDED_N``
+    photons (fluence per photon within 5% of phase 6's one-shard run).
+    The four runs share the card and the host, so their photons/s are
+    those of runs beside each other.  Returns the deposit kernel launches
+    of the four runs."""
+    import multiprocessing
+
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.parallel import mesh as M
+    from rsmcrt_tpu_torch.transport import deposit as dep
+
+    gloo_port, nccl_port = _free_port(), _free_port()
+    runs = {"NCCL, world size 1": ("nccl", 1, 0, nccl_port),
+            "gloo rank 0 of 2": ("gloo", 2, 0, gloo_port),
+            "gloo rank 1 of 2": ("gloo", 2, 1, gloo_port)}
+    outs = {k: tmp / f"scat_{i}.npz" for i, k in enumerate(runs)}
+    ctx = multiprocessing.get_context("spawn")
+    procs = {k: ctx.Process(target=_scat_rank, args=(*a, outs[k]),
+                            daemon=True) for k, a in runs.items()}
+    for p in procs.values():
+        p.start()
+    try:
+        parsed, scene = kernels.setup(SPHERE, device=dev)
+        cfg = _forward_cfg(parsed, SHARDED_N, N_LANES, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        dep.reset_counts()
+        t0 = time.perf_counter()
+        tl, _, launched, steps = M.simulate_sharded_chunked(
+            scene, parsed.source, parsed.settings.grid,
+            parsed.settings.iseed, cfg, mesh=[dev, dev])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dep.deposit_kernel_launches
+        plain = dep.deposit_plain_calls
+        t0 = time.perf_counter()
+        for p in procs.values():
+            p.join(timeout=600)
+    finally:
+        for p in procs.values():
+            if p.is_alive():
+                p.kill()
+                p.join()
+    log(f"[sharded] waited {time.perf_counter() - t0:.2f} s for the "
+        f"simulate_distributed children")
+    launched = int(launched)
+    jm = float(tl.jmean.double().sum()) / launched
+    rel = abs(jm - slice_jmean) / slice_jmean
+    log(f"[sharded] simulate_sharded_chunked, res/sphere.toml, two shards "
+        f"of {N_LANES} lanes on the one card (beside the three "
+        f"simulate_distributed runs): {launched} photons, {int(steps)} "
+        f"megasteps (the longer shard), {wall:.2f} s, "
+        f"{launched / wall:.1f} photons/s, peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB, fluence "
+        f"per photon {jm:.5f} vs phase 6's {slice_jmean:.5f} (rel "
+        f"{rel:.4f}), nscatt/photon {float(tl.nscatt) / launched:.4f}; "
+        f"deposit kernel launches {launches}, plain calls {plain} [{card}]")
+    _check_tallies(tl, GRID ** 3, "sharded sphere")
+    if launched != SHARDED_N or rel >= 0.05:
+        raise AssertionError(f"sharded sphere: {launched} photons, fluence "
+                             f"rel {rel}")
+    if launches <= 0 or plain != 0 or dep.out_of_range_count(dev) != 0:
+        raise AssertionError("the sharded path did not deposit through the "
+                             "kernel")
+    bad = {k: p.exitcode for k, p in procs.items() if p.exitcode != 0}
+    if bad:
+        raise AssertionError(f"simulate_distributed children exited with "
+                             f"{bad}")
+    res = {k: {n: v.item() for n, v in np.load(o).items()}
+           for k, o in outs.items()}
+    for k, r in res.items():
+        _check_distributed(f"simulate_distributed, {k}, res/scat_test.toml",
+                           r, card)
+    g0, g1 = res["gloo rank 0 of 2"], res["gloo rank 1 of 2"]
+    if g0["digest"] != g1["digest"] or g0["steps"] != g1["steps"]:
+        raise AssertionError("the gloo ranks hold different reductions")
+    log(f"[sharded] both gloo ranks hold the same reduced tallies (sha256 "
+        f"{g0['digest'][:16]}...)")
+    return launches + sum(r["launches"] for r in res.values())
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="phases 1-3, 23 and 24 only (the deposit kernels "
-                         "and the gradient run whose gathers phase 23 "
-                         "times); prints no result line")
+                    help="phases 1-3, 23, 27 and 24 only (the deposit "
+                         "and probe kernels and the gradient run whose "
+                         "gathers phase 23 times); prints no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -2323,6 +2673,7 @@ def main(argv=None) -> int:
     deposit = phase_kernel(dev, card)
     jmean_rows = deposit["capture_jmean"]["inputs"]
     f64 = phase_kernel_f64(dev, card, jmean_rows)
+    probes = phase_probes(dev, card)
     box_gathers = []
     if args.kernels_only:
         phase_gradient(dev, card, box_gathers)
@@ -2341,7 +2692,8 @@ def main(argv=None) -> int:
             launches = phase_physics(dev, card)
             phase_card_vs_cpu(dev, tmp, card)
             phase_detectors_card_vs_cpu(dev, tmp, card)
-            launches += phase_slice(dev, tmp, card)
+            slice_launches, slice_jmean = phase_slice(dev, tmp, card)
+            launches += slice_launches
             analog = phase_validation(dev, tmp, card)
             phase_fluenceless(dev, card)
             launches += phase_omg(dev, tmp, card)
@@ -2359,6 +2711,7 @@ def main(argv=None) -> int:
                                   box_gathers[len(box_gathers) // 2])
             f64_launches = phase_f64(dev, card)
             phase_checkpoint(dev, tmp, card)
+            launches += phase_sharded(dev, tmp, card, slice_jmean)
         finally:
             for child in children:
                 child[0].kill()
@@ -2417,7 +2770,23 @@ def main(argv=None) -> int:
         "bound_ms": gather["capture_f32"]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": gather["capture_f32"]["library_ms"],
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "rsmcrt_tpu_torch/csrc/deposit_probes.cu",
+        "replaces": replaces,
+        "launches": probes[key]["launches"],
+        "max_abs_err": probes[key]["err"],
+        "ms": probes[key]["ms"],
+        "plain_ms": probes[key]["plain_ms"],
+        "bound_ms": probes[key]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": probes[key]["library_ms"],
+    } for name, key, replaces in (
+        ("serial_deposit", "serial",
+         "tools/profile_deposit_pallas_serial.py:26"),
+        ("onehot_tile_accumulate", "onehot",
+         "tools/profile_deposit_design.py:128"))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -108,5 +108,11 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, i32, i32, i32, ptr,
                        ptr]
         fn.restype = ctypes.c_int
+        fn = lib.rsmcrt_serial_deposit
+        fn.argtypes = [ptr, i64, ptr, ptr, i64, ptr]
+        fn.restype = ctypes.c_int
+        fn = lib.rsmcrt_onehot_tile
+        fn.argtypes = [ptr, i32, ptr, ptr, ptr, i64, ptr]
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -1587,6 +1587,92 @@ def warmup(scene: Scene, source: Source, grid: CartGrid,
         torch.cuda.synchronize(scene.device)
 
 
+class SimRun:
+    """One forward run driven a chunk at a time, the loop of
+    :func:`simulate`: :meth:`launch` queues a chunk of megasteps without
+    synchronising, :meth:`settle` synchronises once on its results (the
+    host drain of path history, the end test, the tail shrink) and says
+    whether the run is done, :meth:`result` gives what :func:`simulate`
+    returns.  Several runs, each on its own generator and device, can be
+    interleaved: every run's chunk is queued before any is settled
+    (``parallel.mesh``)."""
+
+    def __init__(self, scene: Scene, source: Source, grid: CartGrid,
+                 generator: torch.Generator, cfg: TransportConfig,
+                 bank=None, chunk_steps: int = 16, nphotons=None,
+                 tail_shrink: bool = True, min_lanes: int = 4096):
+        cfg.check_ported()
+        self.scene, self.source, self.grid = scene, source, grid
+        self.generator, self.cfg = generator, cfg
+        self.chunk_steps, self.tail_shrink = chunk_steps, tail_shrink
+        self.min_lanes = min_lanes
+        self.n_target = int(cfg.nphotons if nphotons is None else nphotons)
+        self.cur_cfg = cfg
+        # the run's type is the scene's (reference engine.py:2051)
+        self.carry = init_carry(grid, cfg, bank=bank,
+                                dtype=scene.tables.mus.dtype)
+        self.drained = []
+        self.step = 0
+        self.launched = 0
+        self.done = False
+
+    def launch(self):
+        """Queue the next chunk of megasteps (no host synchronisation)."""
+        cur = self.cur_cfg
+        # at tail widths use longer chunks: host round trips dominate there
+        n = self.chunk_steps if cur.n_lanes > 1024 else 8 * self.chunk_steps
+        n = min(n, self.cfg.max_steps - self.step)
+        self.carry = _run_steps(self.scene, self.source, self.grid,
+                                self.generator, self.carry, cur, n,
+                                self.n_target)
+
+    def settle(self, progress=None) -> bool:
+        """Synchronise on the chunk just launched: drain the kept tracks,
+        call ``progress(launched, nphotons, step, carry)``, and either end
+        the run (budget spent and no lane alive, or ``max_steps``
+        reached) or compact the survivors into a wavefront 1/8 as wide.
+        Returns whether the run is done."""
+        carry, cfg = self.carry, self.cfg
+        self.launched = int(carry.launched)
+        self.step = int(carry.step)
+        tc = int(carry.tallies.track_count) if cfg.max_tracks > 0 else 0
+        if tc > 0:
+            self.drained.append(carry.tallies.tracks[:tc].cpu().clone())
+            carry.tallies.track_count = torch.zeros_like(
+                carry.tallies.track_count)
+        if progress is not None:
+            progress(self.launched, self.n_target, self.step, carry)
+        if self.step >= cfg.max_steps:
+            self.done = True
+            return True
+        n_alive = int(torch.sum(carry.state.alive))
+        spent = self.launched >= self.n_target
+        if spent and n_alive == 0:
+            self.done = True
+            return True
+        cur = self.cur_cfg
+        if (self.tail_shrink and spent and cur.n_lanes > self.min_lanes
+                and n_alive <= cur.n_lanes // 8):
+            new_B = max(self.min_lanes, cur.n_lanes // 8)
+            self.carry = _compact_lanes(carry, new_B)
+            self.cur_cfg = replace(cur, n_lanes=new_B)
+        return False
+
+    def result(self):
+        """``(tallies, bank, launched, steps)`` as :func:`simulate` returns
+        them, the drained tracks spliced back in."""
+        carry = self.carry
+        tallies = carry.tallies
+        if self.drained:
+            dev = self.grid.device
+            full = torch.cat(self.drained).to(dev)
+            tallies = replace(tallies, tracks=full,
+                              track_count=torch.tensor(full.shape[0],
+                                                       dtype=torch.int32,
+                                                       device=dev))
+        return tallies, carry.bank, carry.launched, carry.step
+
+
 def simulate(scene: Scene, source: Source, grid: CartGrid,
              generator: torch.Generator, cfg: TransportConfig, bank=None,
              chunk_steps: int = 16, progress=None, nphotons=None,
@@ -1604,45 +1690,10 @@ def simulate(scene: Scene, source: Source, grid: CartGrid,
     the host every chunk, so the device's ``max_tracks`` slots hold one
     chunk's worth and the run's count is unbounded; the returned
     ``tallies.tracks`` holds them all, ``track_count`` their number."""
-    cfg.check_ported()
-    n_target = int(cfg.nphotons if nphotons is None else nphotons)
-    cur_cfg = cfg
-    # the run's type is the scene's (reference engine.py:2051)
-    carry = init_carry(grid, cfg, bank=bank, dtype=scene.tables.mus.dtype)
-    drained = []
-    step = 0
+    run = SimRun(scene, source, grid, generator, cfg, bank=bank,
+                 chunk_steps=chunk_steps, nphotons=nphotons,
+                 tail_shrink=tail_shrink, min_lanes=min_lanes)
     while True:
-        # at tail widths use longer chunks: host round trips dominate there
-        cur_chunk = (chunk_steps if cur_cfg.n_lanes > 1024
-                     else 8 * chunk_steps)
-        cur_chunk = min(cur_chunk, cfg.max_steps - step)
-        carry = _run_steps(scene, source, grid, generator, carry, cur_cfg,
-                           cur_chunk, n_target)
-        launched = int(carry.launched)
-        step = int(carry.step)
-        tc = int(carry.tallies.track_count) if cfg.max_tracks > 0 else 0
-        if tc > 0:
-            drained.append(carry.tallies.tracks[:tc].cpu().clone())
-            carry.tallies.track_count = torch.zeros_like(
-                carry.tallies.track_count)
-        if progress is not None:
-            progress(launched, n_target, step, carry)
-        if step >= cfg.max_steps:
-            break
-        n_alive = int(torch.sum(carry.state.alive))
-        if launched >= n_target and n_alive == 0:
-            break
-        if (tail_shrink and launched >= n_target
-                and cur_cfg.n_lanes > min_lanes
-                and n_alive <= cur_cfg.n_lanes // 8):
-            new_B = max(min_lanes, cur_cfg.n_lanes // 8)
-            carry = _compact_lanes(carry, new_B)
-            cur_cfg = replace(cur_cfg, n_lanes=new_B)
-    tallies = carry.tallies
-    if drained:
-        full = torch.cat(drained).to(grid.device)
-        tallies = replace(tallies, tracks=full,
-                          track_count=torch.tensor(full.shape[0],
-                                                   dtype=torch.int32,
-                                                   device=grid.device))
-    return tallies, carry.bank, carry.launched, carry.step
+        run.launch()
+        if run.settle(progress):
+            return run.result()
