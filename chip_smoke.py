@@ -162,7 +162,15 @@ Phases (each raises on failure; the exit code is non-zero on any):
     and the byte bound, with the L2 warm and cold.  Then the port-side
     tools (``rsmcrt_tpu_torch.tools.profile_deposit_pallas_serial`` and
     ``profile_deposit_design``) at their default sizes, their kernel
-    launches counted.
+    launches counted (three kernels a serial call, one a tile call).
+    Last, the serial redesign (rows sorted by slab, each slab summed in
+    shared memory, a heavy slab's rest added by REDs) beside the
+    one-RED-a-row kernel, held to the plain twin in float64 and timed in
+    turns (the RED, the new, the new, the RED) with one ``index_add_``,
+    at the tool's size, all rows in one cell and all rows in the ragged
+    last slab; and the tile's RED kernel held to its twin and timed on
+    the tool's rows and on 1,000 rows
+    (``tools/profile_deposit_probes.turns``).
 28. the sharded path on the one card: ``simulate_distributed`` on
     res/scat_test.toml (20,000 photons, nscatt/photon 57.5 +- 1.0) in
     three spawned children, one with NCCL at world size 1 and a gloo pair
@@ -2455,6 +2463,11 @@ def phase_probes(dev, card):
         f"one index_add_ into a fresh tile {t[2]:.4f} ms (cold "
         f"{t[4]:.4f}), bound {bound:.4f} ms [{card}]")
 
+    log(f"[probes] serial_deposit design: {dp.SERIAL_DESIGN}; plan at the "
+        f"tool's size {dp.serial_plan(size, PROBE_N, dp.card_of(dev))} on "
+        f"{dp.card_of(dev)}")
+    log(f"[probes] onehot_tile_accumulate design: {dp.TILE_DESIGN}")
+
     # the port-side tools at their default sizes: the probes' own path
     for key, tool, argv in (("serial", serial, []), ("onehot", design, [])):
         torch.cuda.synchronize()
@@ -2471,6 +2484,14 @@ def phase_probes(dev, card):
         if launches <= 0 or plain != 0:
             raise AssertionError(f"{tool.__name__} did not run its kernel")
         rows[key]["launches"] = launches
+
+    # the serial redesign beside the RED kernel, in turns, and the tile on
+    # the edge cases; the launches of this comparison are not the tools'
+    # path
+    from rsmcrt_tpu_torch import _build
+    from rsmcrt_tpu_torch.tools import profile_deposit_probes as diag
+
+    diag.turns(_build.load(), dev, card)
     return rows
 
 

@@ -108,11 +108,26 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, i32, i32, i32, ptr,
                        ptr]
         fn.restype = ctypes.c_int
-        fn = lib.rsmcrt_serial_deposit
-        fn.argtypes = [ptr, i64, ptr, ptr, i64, ptr]
+        for name in ("rsmcrt_serial_deposit", "rsmcrt_serial_red_only"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, i64, ptr, ptr, i64, ptr]
+            fn.restype = ctypes.c_int
+        for name in ("rsmcrt_onehot_tile", "rsmcrt_onehot_tile_red_only"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, i32, ptr, ptr, ptr, i64, ptr]
+            fn.restype = ctypes.c_int
+        fn = lib.rsmcrt_serial_deposit_slab
+        fn.argtypes = [ptr, i64, ptr, ptr, i64, i32, i32, i32, ptr, ptr,
+                       ptr]
         fn.restype = ctypes.c_int
-        fn = lib.rsmcrt_onehot_tile
-        fn.argtypes = [ptr, i32, ptr, ptr, ptr, i64, ptr]
+        fn = lib.rsmcrt_card_shape
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        fn.restype = ctypes.c_int
+        fn = lib.rsmcrt_probe_memset
+        fn.argtypes = [ptr, i64, ptr]
+        fn.restype = ctypes.c_int
+        fn = lib.rsmcrt_probe_empty
+        fn.argtypes = [ptr]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib

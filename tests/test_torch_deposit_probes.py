@@ -290,7 +290,8 @@ def test_cuda_serial_kernel_matches_twin(cuda_device, n, G, block):
     got = dp.serial_deposit(i, v, G, block=block)
     want, n_bad = dp.serial_deposit_plain(i, v, G, block=block)
     torch.cuda.synchronize(cuda_device)
-    assert dp.serial_kernel_launches == 1 and dp.serial_plain_calls == 0
+    # three kernels a call: sort, add, spill
+    assert dp.serial_kernel_launches == 3 and dp.serial_plain_calls == 0
     assert n_bad == 0
     assert got.shape == want.shape
     scale = float(want.abs().max())
@@ -338,3 +339,236 @@ def test_cuda_kernels_on_unaligned_rows(cuda_device):
     got = dp.onehot_tile_accumulate(hi, lo, x, 16)
     want = dp.onehot_tile_accumulate_plain(hi[None], lo[None], x[None], 16)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# --- the plan of the slab kernels (CPU) -------------------------------------
+
+#: an H100 SXM (and PCIe), an A100 and an L4, as the runtime gives them
+H100 = dp.Card(sms=132, block_smem=232_448)
+H100_PCIE = dp.Card(sms=114, block_smem=232_448)
+A100 = dp.Card(sms=108, block_smem=166_912)
+L4 = dp.Card(sms=58, block_smem=101_376)
+
+
+def _slab_sum(idx, val, size, plan):
+    """The grid cut as the slab kernels cut it: each slab summed on its own
+    from the rows whose cell lies in it, then the slabs laid end to end."""
+    out = []
+    for k in range(plan.slabs):
+        lo, hi = k * plan.slab, min(size, (k + 1) * plan.slab)
+        keep = (idx >= lo) & (idx < hi)
+        cells = torch.zeros(hi - lo, dtype=torch.float32)
+        cells.index_add_(0, (idx[keep] - lo).long(), val[keep])
+        out.append(cells)
+    return torch.cat(out)
+
+
+def test_serial_plan_at_the_tool_size():
+    size = dp.padded_rows(200 ** 3) * dp.LANES
+    plan = dp.serial_plan(size, 1 << 20, H100)
+    # two whole waves of one block an SM; the last slab is ragged
+    assert (plan.slab, plan.slabs) == (30_336, 264)
+    assert plan.slabs % H100.sms == 0
+    assert size - (plan.slabs - 1) * plan.slab == 21_632
+    assert plan.slab <= dp.slab_max(H100) == 55_936
+    # 256 sorted chunks of 4,096 rows, each with 264 + 1 slab starts and
+    # an out-of-range count, beside the heavy slabs' list and count
+    assert plan.parts == (1 << 20) // dp.SORT_ROWS == 256
+    assert (plan.scratch_rows, plan.table) == (1 << 20,
+                                               2 * 264 + 1 + 266 * 256)
+    # a slab's block adds at most four times the mean, 3,972 rows
+    assert plan.heavy == 4 * 3_972
+
+
+@pytest.mark.parametrize("G", [1024, 300])
+def test_serial_plan_of_a_grid_smaller_than_a_slab(G):
+    size = dp.padded_rows(G) * dp.LANES
+    plan = dp.serial_plan(size, 4096, H100)
+    assert (plan.slab, plan.slabs) == (size, 1)
+    assert (plan.parts, plan.scratch_rows, plan.table) == (1, 4096, 6)
+    assert plan.heavy == dp.SORT_ROWS  # one chunk never spills
+
+
+@pytest.mark.parametrize("size,card", [
+    (200_064, H100), (1_000_064, H100), (8_000_000, A100), (8_000_000, L4),
+    (8_000_128, H100_PCIE), (2 ** 31, H100)])
+def test_serial_plan_cuts_any_grid_into_slabs(size, card):
+    plan = dp.serial_plan(size, 12345, card)
+    assert plan.slab % dp.LANES == 0
+    # the slab fits a block's shared memory beside the add block's words
+    assert 4 * plan.slab + dp.SLAB_RESERVED <= card.block_smem
+    assert (plan.slabs - 1) * plan.slab < size <= plan.slabs * plan.slab
+    # whole waves over the SMs where the slab allows
+    if plan.slab > dp.MIN_SLAB and plan.slab + dp.LANES <= dp.slab_max(card):
+        assert plan.slabs % card.sms == 0 or size % plan.slab
+    # one count a slab and the staged chunk fit a block's shared memory
+    assert 4 * (plan.slabs + 1) + 8 * dp.SORT_ROWS <= card.block_smem
+    assert plan.parts == -(-12345 // dp.SORT_ROWS)
+    assert plan.scratch_rows == plan.parts * dp.SORT_ROWS >= 12345
+    assert plan.table == 2 * plan.slabs + 1 + (plan.slabs + 2) * plan.parts
+    assert plan.heavy >= dp.SORT_ROWS
+
+
+def test_serial_plan_rejects_what_the_kernels_cannot_take():
+    with pytest.raises(ValueError):
+        dp.serial_plan(1000, 10, H100)  # not whole rows of 128
+    with pytest.raises(ValueError):
+        dp.serial_plan(1024, 2 ** 31, H100)
+    with pytest.raises(ValueError):
+        dp.serial_plan(8_000_000, 10, H100, slab=1000)
+    with pytest.raises(ValueError):
+        dp.serial_plan(8_000_000, 10, H100, slab=dp.slab_max(H100) + 128)
+    with pytest.raises(ValueError):  # 62,500 slab counts in a sorting block
+        dp.serial_plan(8_000_000, 10, H100, slab=128)
+    assert dp.serial_plan(8_000_000, 10, H100, slab=256).slabs == 31_250
+
+
+@pytest.mark.parametrize("G,slab", [(5000, None), (5000, 1024), (1000, None),
+                                    (40_000, 4096)])
+def test_slabs_laid_end_to_end_are_the_grid(G, slab):
+    """Summing each slab of the plan on its own gives the plain twin's
+    grid: every counted row lands in exactly one slab, the ragged last one
+    included."""
+    idx, val = _serial_inputs(4096, G, seed=7)
+    idx[:50] = G - 1  # rows in the last slab's last cell
+    size = dp.padded_rows(G) * dp.LANES
+    plan = dp.serial_plan(size, 4096, H100, slab=slab)
+    i, v = torch.from_numpy(idx), torch.from_numpy(val)
+    want, _ = dp.serial_deposit_plain(i, v, G, block=4096)
+    got = _slab_sum(i, v, size, plan)
+    assert got.numel() == size
+    torch.testing.assert_close(got, want.reshape(-1), rtol=0, atol=1e-5)
+
+
+def _tool_rows(case, n=1 << 20, G=200 ** 3, seed=13):
+    """The serial tool's row count over 200^3, spread as ``case`` says."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, G, n)
+    size = dp.padded_rows(G) * dp.LANES
+    plan = dp.serial_plan(size, n, H100)
+    last = (plan.slabs - 1) * plan.slab
+    if case == "one cell":
+        idx[:] = G // 2
+    elif case == "ragged last slab":
+        idx = last + idx % (size - last)
+    elif case == "a hot quarter":
+        idx[: n // 4] = 12_345
+    elif case == "twice the mean in one slab":
+        idx[: n // plan.slabs] = plan.slab * 7 + idx[: n // plan.slabs] % 999
+    return idx, plan
+
+
+@pytest.mark.parametrize("case,spills", [
+    ("uniform", False), ("twice the mean in one slab", False),
+    ("one cell", True), ("ragged last slab", True), ("a hot quarter", True)])
+def test_serial_plan_leaves_only_skewed_slabs_to_the_reds(case, spills):
+    """At the tool's size (256 chunks: one batch of the add block) a slab
+    goes to the spill pass when its rows pass ``heavy``: never for the
+    tool's uniform rows or a slab at twice the mean, always for a slab
+    that one SM would otherwise add most rows into."""
+    idx, plan = _tool_rows(case)
+    counts = np.bincount(idx // plan.slab, minlength=plan.slabs)
+    assert plan.parts <= dp.SLAB_THREADS
+    assert bool((counts > plan.heavy).any()) == spills
+    assert int((counts > plan.heavy).sum()) <= 1
+
+
+# --- the slab kernels on their edge cases (need a card) ---------------------
+
+
+def _serial_case(name, G=200 ** 3, n=1 << 18, seed=8):
+    idx, val = _serial_inputs(n, G, seed=seed)
+    size = dp.padded_rows(G) * dp.LANES
+    plan = dp.serial_plan(size, n, H100)
+    last = (plan.slabs - 1) * plan.slab
+    if name == "one cell":
+        idx[:] = G // 2
+    elif name == "ragged last slab":
+        idx = (last + idx % (size - last)).astype(np.int32)
+    elif name == "out of range":
+        idx[[0, 9, n // 2, n - 1]] = [-5, size, 2 ** 31 - 1, -(2 ** 31)]
+    elif name == "zero values":
+        val[::3] = 0.0
+        val[1::7] = -0.0
+        idx[: n // 4] = 77  # a cell that only zeros reach
+        val[: n // 4] = -0.0
+    return idx, val
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["one cell", "ragged last slab",
+                                  "out of range", "zero values"])
+def test_cuda_serial_slab_kernels_on_edge_cases(cuda_device, name):
+    G = 200 ** 3
+    idx, val = _serial_case(name, G)
+    i, v = (torch.from_numpy(a).to(cuda_device) for a in (idx, val))
+    # the twin in float64: in float32 a quarter million rows into one cell
+    # carry ~1e-5 of the cell's rounding in the twin itself
+    want, n_bad = dp.serial_deposit_plain(i, v.double(), G, block=4096)
+    dp.reset_counts()
+    # twice: the second call's table may hold the first call's words
+    for _ in range(2):
+        got, bad = dp._launch_serial(i, v, G, 4096)
+        torch.cuda.synchronize(cuda_device)
+        assert int(bad.item()) == n_bad  # the out-of-range count is exact
+        scale = float(want.abs().max())
+        assert float((got.double() - want).abs().max()) <= (
+            1e-4 + 1e-5 * scale)
+        # a cell only zeros reach is +0.0, as index_add_ leaves it
+        assert torch.equal(torch.signbit(got), torch.signbit(want))
+    assert dp.serial_kernel_launches == 6  # sort, add, spill, twice
+    assert (n_bad == 4) == (name == "out of range")
+
+
+@pytest.mark.cuda
+def test_cuda_serial_slab_kernel_keeps_a_non_finite_value_in_its_cell(
+        cuda_device):
+    idx, val = _serial_inputs(8192, 5000, seed=9)
+    idx[[10, 11, 4000]] = [17, 17, 4999]
+    val[[10, 11, 4000]] = [np.inf, 1.0, np.nan]
+    i, v = (torch.from_numpy(a).to(cuda_device) for a in (idx, val))
+    got = dp.serial_deposit(i, v, 5000, block=4096)
+    want, _ = dp.serial_deposit_plain(i, v, 5000, block=4096)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert int(torch.isfinite(got).logical_not().sum()) == 2
+    ok = torch.isfinite(want)
+    assert float((got[ok] - want[ok]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab", [128, 4096, 55_936])
+def test_cuda_serial_slab_kernels_over_other_slabs(cuda_device, slab):
+    """Unaligned rows (4 bytes past a 16-byte boundary) under other slabs,
+    down to slabs of one tile row."""
+    G = 100_000
+    idx, val = _serial_inputs(3 * 4096 + 1, G, seed=10)
+    i, v = (torch.from_numpy(a).to(cuda_device)[1:] for a in (idx, val))
+    got, bad = dp._launch_serial(i, v, G, 4096, slab=slab)
+    want, _ = dp.serial_deposit_plain(i, v, G, block=4096)
+    assert int(bad.item()) == 0
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 + 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_cuda_serial_slab_kernels_spill_from_a_later_batch(cuda_device):
+    """1,100 chunks: the add block takes its slab's runs 1,024 chunks at a
+    time, and the last 76 chunks, all in one cell, take the slab past
+    ``heavy`` only in the second batch, which the spill pass adds."""
+    G, n = 200 ** 3, 1100 * 4096
+    rng = np.random.default_rng(14)
+    idx = rng.integers(0, G, n).astype(np.int32)
+    val = rng.random(n).astype(np.float32)
+    idx[1024 * 4096:] = 3_000_001
+    i, v = (torch.from_numpy(a).to(cuda_device) for a in (idx, val))
+    size = dp.padded_rows(G) * dp.LANES
+    plan = dp.serial_plan(size, n, dp.card_of(cuda_device))
+    k = 3_000_001 // plan.slab
+    first = int(((idx[:1024 * 4096] // plan.slab) == k).sum())
+    assert first <= plan.heavy < first + 76 * 4096
+    got, bad = dp._launch_serial(i, v, G, 4096)
+    want, _ = dp.serial_deposit_plain(i, v.double(), G, block=4096)
+    assert int(bad.item()) == 0
+    scale = float(want.abs().max())
+    assert float((got.double() - want).abs().max()) <= 1e-4 + 1e-5 * scale
