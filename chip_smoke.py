@@ -35,7 +35,8 @@ Phases (each raises on failure; the exit code is non-zero on any):
    radial fluence within 10%).
 6. the slice at full width: ``kernels.default_MCRT("res/sphere.toml")``,
    32768 lanes, 200^3 grid, cut from 1,000,000 photons to 250,000, with
-   every deposit counted.
+   every deposit counted; the run has ``tev = true`` in a copy of the
+   config and is phase 29's.
 7. window kernel against plain: ``deposit_window_packed`` against its
    plain twin on three inputs (the deposit-window tool's workload of
    524,288 Morton-sorted deposits, phase 3's cloud mix packed and
@@ -47,7 +48,8 @@ Phases (each raises on failure; the exit code is non-zero on any):
 9. the detector slice at full size: ``res/validation1.toml`` (van de Hulst
    slab, pencil beam, two circle detectors) at its 1,000,000 photons
    through ``kernels.run_MCRT(record_fluence=False)``; Rd and Td gated at
-   the reference's tolerances, the detector dumps written.
+   the reference's tolerances, the detector dumps written.  The run is
+   the first of phase 33's with the early exit, which runs just before.
 10. the fluenceless bench path: the sphere scene and the bench's circle
     detector, 32768 lanes, K = 64, 3 in-chain respawns, no fluence and no
     emission, at 1,000,000 photons (the bench runs 32M).
@@ -180,6 +182,30 @@ Phases (each raises on failure; the exit code is non-zero on any):
     (every photon launched, fluence per photon within 5% of phase 6's
     one-shard run); photons/s of each (of runs beside each other), every
     deposit through the kernel.
+29. tev: phase 6's run of res/sphere.toml (200^3, 250,000 photons) with
+    ``tev = true``, through ``kernels.default_MCRT`` and ``run_MCRT``,
+    against a fake viewer on an ephemeral port (the client module is
+    pointed at it): CloseImage, one CreateImage of (nxg, nzg), an I, J and
+    K UpdateImage every chunk, the last three equal to the returned
+    fluence's mid-planes to float32 bits.
+30. the native cross-checks (tests/test_native_crossval.py: the sphere at
+    20,000 photons on 32^3, the egg with an onion shell and the Fresnel
+    sphere at 15,000 on 24^3, 4,096 lanes, its tolerances) against the
+    native engine built here from native/mcrt.cpp into build/native/.
+31. the reference's slow analytic gates through the port's validators
+    (``rsmcrt_tpu_torch/tools/``): fibre collection efficiency at 60,000
+    photons (every aperture within 12% of 0.5 (1 - cos atan(a/f))) and the
+    refractive-index-mismatch depth fluence at 50,000 (R^2 > 0.90).
+32. the dryrun: ``entry.entry()``'s megastep once (the flagship sphere on
+    64^3, 1,024 lanes) and ``entry.dryrun_multichip(1)`` (both sharded
+    configurations of the reference's dryrun).
+33. the chunk's early exit in turns against the loop it replaced (parent,
+    change, change, parent): the slab at its 1,000,000 photons and a
+    3,000-photon run at 1,024 lanes (128-megastep chunks); megasteps
+    dispatched against counted, and the wall.  It runs after phase 6, and
+    phase 9 gates its first slab run with the early exit.
+    Each run of phases 29-33 must launch the deposit kernel and make no
+    plain call.
 
 Phase 17's wavelengths are those the run launched: the engine's source
 sampler is wrapped for that run (``_launched_wavelengths``).
@@ -193,7 +219,10 @@ runs were cut from 100,000 photons to 50,000 (the script had taken
 H100 80GB HBM3 at 700 W), then its refractive pair to 20,000 (1,028.1 s
 on a slower host; every phase took 1.3-2.9x its time in a 665.1 s run
 of the same phases), and then, to make room for phase 28 (about a minute),
-its scat_test run to 20,000 photons (phase 4's size and gate).
+its scat_test run to 20,000 photons (phase 4's size and gate).  Phases
+29-33 add about 120 s on a normal host: phase 29 rides on phase 6's run
+and phase 9 on one of phase 33's, so neither adds a run (the script took
+1,164.8 s of its 1,200 s on a slow host with them as runs of their own).
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -728,7 +757,10 @@ def _check_tallies(tl, n_cells, what):
                                  "finite/non-negative")
 
 
-def phase_slice(dev, tmp, card, n=250_000):
+def phase_slice(dev, tmp, card, toml=SPHERE, n=250_000):
+    """res/sphere.toml (or ``toml``, a copy of it) through
+    ``kernels.default_MCRT`` at ``n`` photons.  Returns the deposit
+    launches, the fluence per photon and the result."""
     from rsmcrt_tpu_torch import kernels
     from rsmcrt_tpu_torch.transport import deposit as dep
 
@@ -736,7 +768,7 @@ def phase_slice(dev, tmp, card, n=250_000):
     torch.cuda.reset_peak_memory_stats(dev)
     dep.reset_counts()
     with contextlib.chdir(tmp):  # the run's checkpoint file lands here
-        res = kernels.default_MCRT(SPHERE, data_dir=tmp / "data",
+        res = kernels.default_MCRT(toml, data_dir=tmp / "data",
                                    nphotons=n, verbose=False, device=dev)
     launches, plain = dep.deposit_kernel_launches, dep.deposit_plain_calls
     peak = torch.cuda.max_memory_allocated(dev)
@@ -763,15 +795,14 @@ def phase_slice(dev, tmp, card, n=250_000):
     vol = tmp / "data" / "jmean" / "fluence.nrrd"
     if not vol.exists():
         raise AssertionError("no fluence volume written")
-    return launches, float(tl.jmean.double().sum()) / res.launched
+    return launches, float(tl.jmean.double().sum()) / res.launched, res
 
 
-def phase_validation(dev, tmp, card):
-    """The detector slice: the van de Hulst slab at its 1,000,000 photons,
-    Rd and Td against the analytic values at the reference's gate
-    (tests/test_analytic_validation.py: 0.005 and 0.008)."""
+def slab_run(dev):
+    """One run of the van de Hulst slab at its 1,000,000 photons through
+    ``kernels.run_MCRT(record_fluence=False)``: ``(result, deposit kernel
+    launches, plain calls, peak device memory in bytes)``."""
     from rsmcrt_tpu_torch import kernels
-    from rsmcrt_tpu_torch.detectors.detectors import totals
     from rsmcrt_tpu_torch.transport import deposit as dep
 
     parsed, scene = kernels.setup(SLAB, device=dev)
@@ -779,8 +810,19 @@ def phase_validation(dev, tmp, card):
     torch.cuda.reset_peak_memory_stats(dev)
     dep.reset_counts()
     res = kernels.run_MCRT(parsed, scene, record_fluence=False)
-    launches, plain = dep.deposit_kernel_launches, dep.deposit_plain_calls
-    peak = torch.cuda.max_memory_allocated(dev)
+    return (res, dep.deposit_kernel_launches, dep.deposit_plain_calls,
+            torch.cuda.max_memory_allocated(dev))
+
+
+def phase_validation(dev, tmp, card, run):
+    """The detector slice: the van de Hulst slab at its 1,000,000 photons
+    (``run``, one of ``slab_run``'s, taken by phase 33 in its turns), Rd
+    and Td against the analytic values at the reference's gate
+    (tests/test_analytic_validation.py: 0.005 and 0.008)."""
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.detectors.detectors import totals
+
+    res, launches, plain, peak = run
     n = res.launched
     rd, td = (float(v) for v in totals(res.bank) / n)
     dev_sigma = []
@@ -2291,8 +2333,8 @@ def phase_checkpoint(dev, tmp, card):
     cfg1.write_text(CKPT_CFG.format(n=3000, load="false", ckpt=ckpt))
     cfg2.write_text(CKPT_CFG.format(n=3000, load="true", ckpt=ckpt))
     t0 = time.perf_counter()
-    # 2,048 lanes: at 1,024 or fewer ``simulate`` runs chunks of 128
-    # megasteps, whether or not the photons are done
+    # 2,048 lanes (the reference test's 1,024 ran 128-megastep chunks to
+    # their end before the chunk's early exit; phase 33 times that)
     full = kernels.default_MCRT(cfg1, data_dir=tmp / "ckpt_full",
                                 n_lanes=2048, verbose=False, device=dev)
     part = kernels.run_MCRT(*kernels.setup(cfg1, device=dev),
@@ -2673,6 +2715,421 @@ def phase_sharded(dev, tmp, card, slice_jmean):
         f"{g0['digest'][:16]}...)")
     return launches + sum(r["launches"] for r in res.values())
 
+
+# --- phases 29-33: the last reference code, and the chunk's early exit -----
+
+def _timed(tag, phase, *args):
+    """``phase(*args)``, then a line with its seconds."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"[{tag}] phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+class FakeTevServer:
+    """A fake tev viewer on an ephemeral port of 127.0.0.1: accepts one
+    connection and records every ``(op, payload)`` packet of tev's
+    protocol ([uint32 LE length][uint8 op][payload])."""
+
+    def __init__(self):
+        import socket
+        import threading
+
+        self.sock = socket.socket()
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(1)
+        self.sock.settimeout(600.0)
+        self.port = self.sock.getsockname()[1]
+        self.packets = []
+        self.thread = threading.Thread(target=self._serve, daemon=True)
+        self.thread.start()
+
+    def _serve(self):
+        import struct
+
+        try:
+            conn, _ = self.sock.accept()
+        except OSError:
+            return
+        buf = b""
+        with conn:
+            conn.settimeout(600.0)
+            while True:
+                data = conn.recv(1 << 20)
+                if not data:
+                    break
+                buf += data
+                while len(buf) >= 5:
+                    (length,) = struct.unpack("<I", buf[:4])
+                    if len(buf) < length:
+                        break
+                    self.packets.append((buf[4], buf[5:length]))
+                    buf = buf[length:]
+
+    def join(self):
+        self.thread.join(timeout=60.0)
+        self.sock.close()
+        if self.thread.is_alive():
+            raise AssertionError("the fake tev viewer never saw the "
+                                 "client close")
+
+
+def _read_str(payload):
+    end = payload.index(b"\x00")
+    return payload[:end].decode(), payload[end + 1:]
+
+
+def phase_tev(dev, tmp, card):
+    """Phase 6's run with ``tev = true`` in a copy of res/sphere.toml,
+    against a fake viewer (the client's module is pointed at its ephemeral
+    port): one CloseImage and one CreateImage of (nxg, nzg) with channels
+    I/J/K, then an I, J and K UpdateImage every chunk, the last three
+    equal to the returned fluence's mid-planes to float32 bits.  Returns
+    what ``phase_slice`` returns."""
+    import functools
+    import struct
+
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.io import tev
+    from rsmcrt_tpu_torch.transport import engine
+
+    toml = tmp / "sphere.toml"
+    toml.write_text(SPHERE.read_text().replace(
+        "iseed = 123456789", "iseed = 123456789\ntev = true"))
+    parsed, _ = kernels.setup(toml, device=dev)
+    st = parsed.settings
+    if not st.tev:
+        raise AssertionError("tev = true did not parse")
+    g = st.grid
+    srv = FakeTevServer()
+    real_ipc, real_settle = tev.TevIPC, engine.SimRun.settle
+    chunks = []
+
+    def settle(self, progress=None):
+        chunks.append(1)
+        return real_settle(self, progress)
+
+    tev.TevIPC = functools.partial(real_ipc, port=srv.port)
+    engine.SimRun.settle = settle
+    try:
+        out = phase_slice(dev, tmp, card, toml=toml)
+    finally:
+        tev.TevIPC, engine.SimRun.settle = real_ipc, real_settle
+    res = out[2]
+    srv.join()
+    ops = [op for op, _ in srv.packets]
+    log(f"[tev] phase 6's run with tev = true: {res.steps} megasteps in "
+        f"{len(chunks)} chunks; the viewer received {len(ops)} packets "
+        f"(ops {ops[:2]} then {ops.count(3)} updates of the {g.shape} "
+        f"volume's mid-planes) [{card}]")
+    if ops[:2] != [2, 4] or ops[2:] != [3] * (len(ops) - 2):
+        raise AssertionError(f"tev packets {ops}")
+    name, rest = _read_str(srv.packets[1][1][1:])
+    if name != st.experiment or struct.unpack("<iii", rest[:12]) != (
+            g.nxg, g.nzg, 3):
+        raise AssertionError("tev CreateImage")
+    n_upd = len(ops) - 2
+    if n_upd != 3 * len(chunks) or n_upd < 3:
+        raise AssertionError(f"{n_upd} updates for {len(chunks)} chunks")
+    vol = res.tallies.jmean.reshape(g.shape).cpu().numpy()
+    nx, ny, nz = vol.shape
+    planes = {"I": vol[:, ny // 2, :], "J": vol[nx // 2, :, :],
+              "K": vol[:, :, nz // 2]}
+    for _, payload in srv.packets[-3:]:
+        name, rest = _read_str(payload[1:])
+        chan, rest = _read_str(rest)
+        want = np.ascontiguousarray(planes[chan], np.float32)
+        x, y, w, h = struct.unpack("<iiii", rest[:16])
+        if (x, y, h, w) != (0, 0, *want.shape) or \
+                rest[16:] != want.tobytes():
+            raise AssertionError(f"tev slice {chan} differs from the "
+                                 "returned fluence")
+    return out
+
+
+def _native_case(dev, name, prims_n, prims_t, grid_n, pos, n, seed):
+    """One cross-check of tests/test_native_crossval.py: the native engine
+    and ``engine.simulate`` (its ``TransportConfig(nphotons=n,
+    n_lanes=4096)``, the plain walk) on the card, both at ``n`` photons.
+    Returns ``(port volume, port nscatt/photon, native volume, native
+    nscatt/photon, port wall s, native wall s, megasteps)``."""
+    from rsmcrt_tpu_torch import native
+    from rsmcrt_tpu_torch.grid import cart_grid
+    from rsmcrt_tpu_torch.sdfs import scene as S
+    from rsmcrt_tpu_torch.sources.sources import build_source
+    from rsmcrt_tpu_torch.transport import engine
+
+    t0 = time.perf_counter()
+    j_n, ns_n = native.run_native(prims_n, [grid_n] * 3, [1.0] * 3, 0, pos,
+                                  None, n, seed=seed)
+    t_n = time.perf_counter() - t0
+    scene = S.build_scene(prims_t, device=dev)
+    grid = cart_grid(grid_n, grid_n, grid_n, 1.0, 1.0, 1.0, device=dev)
+    src = build_source("point", device=dev, position=pos)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tl, _, launched, steps = engine.simulate(
+        scene, src, grid, gen, engine.TransportConfig(nphotons=n,
+                                                      n_lanes=4096))
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+    if int(launched) != n:
+        raise AssertionError(f"{name}: launched {int(launched)}")
+    j_p = tl.jmean.reshape(grid.shape).double().cpu().numpy()
+    return (j_p, float(tl.nscatt) / n, j_n.astype(np.float64), ns_n / n,
+            t_p, t_n, int(steps))
+
+
+def phase_native(dev, card):
+    """The three cross-checks of tests/test_native_crossval.py on the card,
+    at its photon counts, grids and tolerances, against the native engine
+    built here from native/mcrt.cpp into build/native/ (a build or load
+    failure fails the phase).  Returns the deposit launches."""
+    from rsmcrt_tpu_torch import native
+    from rsmcrt_tpu_torch.optics.properties import mono
+    from rsmcrt_tpu_torch.sdfs import scene as S
+    from rsmcrt_tpu_torch.transport import deposit as dep
+
+    native.library_path().unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    lib = native._ensure_built()
+    log(f"[native] g++ {' '.join(native.CXX_FLAGS)} native/mcrt.cpp -> "
+        f"{native.library_path().relative_to(ROOT)} in "
+        f"{time.perf_counter() - t0:.2f} s; {lib.mcrt_num_threads()} "
+        f"thread(s)")
+    vac = mono(0.0, 0.0, 0.0, 1.0)
+    box_n = native.box([0, 0, 0], [2.0, 2.0, 2.0], 0.0, 0.0, 0.0, 1.0)
+    egg_args = (0.6, 0.25, 0.35)
+    dep.reset_counts()
+    failures = []
+
+    for name, prims_n, prims_t, g, pos, n, seed in (
+            ("sphere", [native.sphere([0, 0, 0], 1.0, 10.0, 0.1, 0.5, 1.0),
+                        box_n],
+             [S.sphere(1.0, mono(10.0, 0.1, 0.5, 1.0), 1, device=dev),
+              S.box([2.0, 2.0, 2.0], vac, 2, device=dev)],
+             32, [0.0, 0.0, 0.0], 20_000, 5),
+            ("egg with shell",
+             [native.egg([0, 0, 0], *egg_args, 8.0, 0.2, 0.6, 1.33),
+              native.egg_shell([0, 0, 0], 0.75, 0.3, 0.45, 0.06, 1.0, 1.0,
+                               0.0, 1.45), box_n],
+             [S.egg(*egg_args, mono(8.0, 0.2, 0.6, 1.33), 1, device=dev),
+              S.onion(S.egg(0.75, 0.3, 0.45, mono(1.0, 1.0, 0.0, 1.45), 2,
+                            device=dev), 0.06, device=dev),
+              S.box([2.0, 2.0, 2.0], vac, 3, device=dev)],
+             24, [0.0, -0.1, 0.0], 15_000, 13),
+            ("Fresnel sphere",
+             [native.sphere([0, 0, 0], 1.0, 10.0, 0.1, 0.9, 1.38), box_n],
+             [S.sphere(1.0, mono(10.0, 0.1, 0.9, 1.38), 1, device=dev),
+              S.box([2.0, 2.0, 2.0], vac, 2, device=dev)],
+             24, [0.0, 0.0, 0.0], 15_000, 9)):
+        j_p, ns_p, j_n, ns_n, t_p, t_n, steps = _native_case(
+            dev, name, prims_n, prims_t, g, pos, n, seed)
+        tp, tn = j_p.sum() / n, j_n.sum() / n
+        path_rel = abs(tp - tn) / tn
+        if name == "sphere":
+            ns_ok = abs(ns_p - ns_n) < 1.0
+            prof_n = _profile(torch.from_numpy(j_n), g)
+            rel = np.abs(_profile(torch.from_numpy(j_p), g) - prof_n) / \
+                np.maximum(prof_n, 1e-9)
+            shape, shape_ok = f"radial profile max rel {rel.max():.4f} " \
+                "(< 0.1); ", bool(np.all(rel < 0.1))
+            path_ok = path_rel < 0.02
+        else:
+            ns_ok = abs(ns_p - ns_n) / max(ns_n, 1e-9) < 0.05
+            path_ok = path_rel < 0.03
+            if name == "egg with shell":
+                pp, pn = j_p.sum(axis=(0, 2)), j_n.sum(axis=(0, 2))
+                l1 = float(np.abs(pp / pp.sum() - pn / pn.sum()).sum())
+                shape, shape_ok = f"axial profile L1 {l1:.4f} (< 0.08); ", \
+                    l1 < 0.08
+            else:
+                shape, shape_ok = "", True
+        log(f"[native] {name}, {n} photons on {g}^3: nscatt/photon port "
+            f"{ns_p:.4f} native {ns_n:.4f}; path/photon {tp:.5f} vs "
+            f"{tn:.5f} (rel {path_rel:.4f}); {shape}port {steps} "
+            f"megasteps in {t_p:.2f} s, native {t_n:.2f} s [{card}]")
+        if not (ns_ok and path_ok and shape_ok):
+            failures.append(name)
+    launches, plain = dep.deposit_kernel_launches, dep.deposit_plain_calls
+    log(f"[native] deposit kernel launches {launches}, plain calls {plain}")
+    if failures:
+        raise AssertionError(f"native cross-check failed: {failures}")
+    if launches <= 0 or plain != 0:
+        raise AssertionError("the cross-checks did not deposit through the "
+                             "kernel")
+    return launches
+
+
+def phase_gates(dev, card):
+    """The reference's slow analytic gates (tests/test_analytic_validation.py)
+    on the card through the port's validators: fibre collection
+    efficiency at 60,000 photons (every aperture within 12% of
+    0.5 (1 - cos atan(a/f))) and the refractive-index-mismatch depth
+    fluence at 50,000 (R^2 > 0.90).  Returns the deposit launches."""
+    from rsmcrt_tpu_torch.tools import validate_fibre_dect as fibre
+    from rsmcrt_tpu_torch.tools import validate_ri_mismatch as ri
+    from rsmcrt_tpu_torch.transport import deposit as dep
+
+    dep.reset_counts()
+    t0 = time.perf_counter()
+    _, tot, theory = fibre.main(nphotons=60_000, device=dev)
+    t_f = time.perf_counter() - t0
+    rel = np.abs(tot - theory) / theory
+    log(f"[gates] fibre collection, 60000 photons: efficiencies "
+        f"{np.round(tot, 5).tolist()} vs {np.round(theory, 5).tolist()}, "
+        f"max rel {rel.max():.4f} (< 0.12); {t_f:.2f} s [{card}]")
+    t0 = time.perf_counter()
+    r2 = ri.main(nphotons=50_000, device=dev)
+    t_r = time.perf_counter() - t0
+    launches, plain = dep.deposit_kernel_launches, dep.deposit_plain_calls
+    log(f"[gates] RI mismatch, 50000 photons: R^2 {r2:.4f} (> 0.90); "
+        f"{t_r:.2f} s; deposit kernel launches {launches}, plain calls "
+        f"{plain} [{card}]")
+    if not np.all(rel < 0.12):
+        raise AssertionError(f"fibre efficiencies {tot} vs {theory}")
+    if not r2 > 0.90:
+        raise AssertionError(f"RI mismatch R^2 {r2}")
+    if launches <= 0 or plain != 0:
+        raise AssertionError("the gates did not deposit through the kernel")
+    return launches
+
+
+def phase_dryrun(dev, card):
+    """``entry.entry()``'s megastep once on the card (the flagship sphere on
+    64^3 at 1,024 lanes: every lane launched, fluence deposited) and
+    ``entry.dryrun_multichip(1)`` (its asserts are the reference's).
+    Returns the deposit launches."""
+    from rsmcrt_tpu_torch import entry
+    from rsmcrt_tpu_torch.transport import deposit as dep
+
+    dep.reset_counts()
+    t0 = time.perf_counter()
+    fn, (carry,) = entry.entry()
+    out = fn(carry)
+    torch.cuda.synchronize()
+    t_e = time.perf_counter() - t0
+    if out.tallies.jmean.device.type != dev.type \
+            or int(out.launched) != 1024 \
+            or not float(out.tallies.jmean.sum()) > 0.0:
+        raise AssertionError("entry(): the megastep did not run on the card")
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(1)
+    t_d = time.perf_counter() - t0
+    launches, plain = dep.deposit_kernel_launches, dep.deposit_plain_calls
+    log(f"[dryrun] entry(): one megastep, 1024 photons, fluence "
+        f"{float(out.tallies.jmean.sum()):.3f}, {t_e:.2f} s; "
+        f"dryrun_multichip(1): both sharded configurations in {t_d:.2f} s; "
+        f"deposit kernel launches {launches}, plain calls {plain} [{card}]")
+    if launches <= 0 or plain != 0:
+        raise AssertionError("the dryrun did not deposit through the kernel")
+    return launches
+
+
+def _run_steps_to_the_end(scene, source, grid, generator, carry, cfg,
+                          n_steps, nphotons):
+    """The chunk before the early exit (commit 57e9074): every megastep of
+    the chunk is dispatched, only those of an unfinished run counted."""
+    from rsmcrt_tpu_torch.transport import engine
+
+    for _ in range(n_steps):
+        more = (carry.launched < nphotons) | torch.any(carry.state.alive)
+        step = carry.step
+        carry = engine.transport_step(carry, scene, source, grid, generator,
+                                      cfg, nphotons)
+        carry.step = step + more.to(torch.int32)
+    return carry
+
+
+def phase_early_exit(dev, tmp, card):
+    """The chunk's early exit timed in turns against the loop it replaced
+    (every megastep of a chunk dispatched), parent, change, change, parent:
+    the slab (res/validation1.toml at its 1,000,000 photons, fluenceless,
+    32,768 lanes, 16-megastep chunks) and a 3,000-photon run at 1,024
+    lanes (128-megastep chunks; tests/test_checkpoint_resume.py's tau-3
+    scat_test sphere on 16^3, the plain walk of ``TransportConfig``'s
+    defaults).  Megasteps dispatched (``transport_step`` calls) against
+    counted (``step``), and the wall.  The early exit must dispatch fewer
+    than the old loop, at most 4 past the counted, count the same, and
+    launch every photon.  Returns the deposit launches and the first
+    change run of the slab (``slab_run``'s), which phase 9 gates."""
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.transport import deposit as dep
+    from rsmcrt_tpu_torch.transport import engine
+
+    small = tmp / "early_exit_3000.toml"
+    small.write_text(CKPT_CFG.format(n=3000, load="false",
+                                     ckpt=tmp / "unused.ckpt"))
+    real_step, real_run = engine.transport_step, engine._run_steps
+    calls = []
+
+    def counting(*a, **k):
+        calls.append(1)
+        return real_step(*a, **k)
+
+    kept = []
+
+    def slab():
+        run = slab_run(dev)
+        kept.append(run)
+        res = run[0]
+        return res.parsed.settings.nphotons, res.launched, res.steps, \
+            res.elapsed
+
+    def three_thousand():
+        parsed, scene = kernels.setup(small, device=dev)
+        st = parsed.settings
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(st.iseed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, launched, steps = engine.simulate(
+            scene, parsed.source, st.grid, gen,
+            engine.TransportConfig(nphotons=st.nphotons, n_lanes=1024))
+        torch.cuda.synchronize()
+        return (st.nphotons, int(launched), int(steps),
+                time.perf_counter() - t0)
+
+    rows = {}
+    launches = plain = 0
+    engine.transport_step = counting
+    try:
+        for name, run in (("slab", slab), ("3000 photons", three_thousand)):
+            for which in ("parent", "change", "change", "parent"):
+                engine._run_steps = (_run_steps_to_the_end
+                                     if which == "parent" else real_run)
+                calls.clear()
+                dep.reset_counts()
+                n, launched, steps, wall = run()
+                launches += dep.deposit_kernel_launches
+                plain += dep.deposit_plain_calls
+                if launched != n:
+                    raise AssertionError(f"{name}: launched {launched}")
+                rows.setdefault((name, which), []).append(
+                    (len(calls), steps, wall))
+                log(f"[early-exit] {name}, {which}: {len(calls)} megasteps "
+                    f"dispatched, {steps} counted, {wall:.2f} s [{card}]")
+    finally:
+        engine.transport_step, engine._run_steps = real_step, real_run
+    for name in ("slab", "3000 photons"):
+        old, new = rows[(name, "parent")], rows[(name, "change")]
+        log(f"[early-exit] {name}: dispatched/counted parent "
+            f"{[f'{d}/{s}' for d, s, _ in old]}, change "
+            f"{[f'{d}/{s}' for d, s, _ in new]}; wall parent "
+            f"{[round(w, 2) for *_, w in old]} s, change "
+            f"{[round(w, 2) for *_, w in new]} s [{card}]")
+        for d, s, _ in new:
+            if not (s <= d <= s + 4 and d < min(o[0] for o in old)):
+                raise AssertionError(f"{name}: the change dispatched {d} "
+                                     f"megasteps for {s}")
+    if plain != 0 or launches <= 0:
+        raise AssertionError("the early-exit runs did not deposit through "
+                             "the kernel")
+    return launches, kept[1]
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2713,9 +3170,13 @@ def main(argv=None) -> int:
             launches = phase_physics(dev, card)
             phase_card_vs_cpu(dev, tmp, card)
             phase_detectors_card_vs_cpu(dev, tmp, card)
-            slice_launches, slice_jmean = phase_slice(dev, tmp, card)
+            slice_launches, slice_jmean, _ = _timed("tev", phase_tev, dev,
+                                                    tmp, card)
             launches += slice_launches
-            analog = phase_validation(dev, tmp, card)
+            exit_launches, slab = _timed("early-exit", phase_early_exit,
+                                         dev, tmp, card)
+            launches += exit_launches
+            analog = phase_validation(dev, tmp, card, slab)
             phase_fluenceless(dev, card)
             launches += phase_omg(dev, tmp, card)
             phase_omg_card_vs_cpu(card, dev, children[0])
@@ -2733,6 +3194,9 @@ def main(argv=None) -> int:
             f64_launches = phase_f64(dev, card)
             phase_checkpoint(dev, tmp, card)
             launches += phase_sharded(dev, tmp, card, slice_jmean)
+            launches += _timed("native", phase_native, dev, card)
+            launches += _timed("gates", phase_gates, dev, card)
+            launches += _timed("dryrun", phase_dryrun, dev, card)
         finally:
             for child in children:
                 child[0].kill()

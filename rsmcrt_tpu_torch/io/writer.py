@@ -200,3 +200,35 @@ def write_detected_photons(bank, nphotons: int, out_dir: str | Path):
             r0 = float(_host(d.r1[member])) if fam == "annulus" else 0.0
             for j, val in enumerate(data):
                 w((j + 0.5) * bw + r0, val)
+
+
+def read_detector_dat(filename: str | Path) -> dict:
+    """Read a 1D detector dump of :func:`write_detected_photons` (a
+    circle, fibre or annulus: tags 1, 2, 3): its tag, ID, nphotons,
+    geometry parameters and the (bin centre, count) pairs as ``bins`` and
+    ``counts`` (the reference package's reader; model:
+    tools/plotDetectorsClass.py).  Raises on any other tag."""
+    raw = np.fromfile(filename, np.float64)
+    tag = raw[0]
+    idlen = int(raw[1])
+    dect_id = "".join(chr(int(c)) for c in raw[2:2 + idlen])
+    off = 2 + idlen
+    nphotons = raw[off]
+    off += 1
+    if tag == 1.0:
+        meta = dict(radius=raw[off], pos=raw[off + 1:off + 4],
+                    dir=raw[off + 4:off + 7])
+        off += 7
+    elif tag == 3.0:
+        meta = dict(r1=raw[off], r2=raw[off + 1], pos=raw[off + 2:off + 5],
+                    dir=raw[off + 5:off + 8])
+        off += 8
+    elif tag == 2.0:
+        meta = dict(pos=raw[off:off + 3], dir=raw[off + 3:off + 6],
+                    params=raw[off + 6:off + 17])
+        off += 17
+    else:
+        raise ValueError(f"unknown detector tag {tag}")
+    pairs = raw[off:].reshape(-1, 2)
+    return dict(tag=tag, id=dect_id, nphotons=nphotons, bins=pairs[:, 0],
+                counts=pairs[:, 1], **meta)

@@ -13,8 +13,10 @@ resumes from one (``load_checkpoint = true``).  The npz checkpoint of
 every tally and detector bin is
 :func:`~rsmcrt_tpu_torch.io.writer.write_checkpoint_full`.
 
-The live tev viewer is still to port (ROADMAP queue 1, item 4) and
-raises ``NotImplementedError``.
+With ``tev = true`` in ``[simulation]``, :func:`run_MCRT` streams the
+fluence's mid-plane slices to a `tev` viewer listening on 127.0.0.1:14158
+(:mod:`rsmcrt_tpu_torch.io.tev`); with no viewer listening it sends
+nothing.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from . import default_device
 from .config import ParsedConfig, parse_params
+from .io import tev as tev_ipc
 from .io.history import write_history
 from .io.writer import (read_checkpoint, write_checkpoint, write_data,
                         write_detected_photons)
@@ -118,7 +121,8 @@ def run_MCRT(parsed: ParsedConfig, scene: Scene, nphotons=None,
              record_fluence=True, record_phasor=None,
              progress_bar=False) -> SimResult:
     """Forward simulation (reference: run_MCRT, kernelsMod.f90:1790-1898),
-    with periodic checkpointing via the chunked-progress callback.  Random
+    including the live tev viewer (:1874-1887) and periodic checkpointing
+    (:1863) via the chunked-progress callback.  Random
     numbers come from a ``torch.Generator`` on the scene's device seeded
     with ``seed`` (default: the config's ``iseed``).  ``history`` (or the
     config's ``trackHistory``) keeps the paths of detected photons, 64
@@ -126,9 +130,6 @@ def run_MCRT(parsed: ParsedConfig, scene: Scene, nphotons=None,
     tallies the complex field.  Either takes the plain walk."""
     st = parsed.settings
     device = scene.device
-    if st.tev:
-        raise NotImplementedError(
-            "the tev viewer is not ported (ROADMAP queue 1, item 4)")
     nphotons = int(nphotons if nphotons is not None else st.nphotons)
     n_lanes = int(n_lanes if n_lanes is not None else
                   default_lanes(nphotons, device))
@@ -156,24 +157,39 @@ def run_MCRT(parsed: ParsedConfig, scene: Scene, nphotons=None,
     gen.manual_seed(int(seed if seed is not None else st.iseed))
     grid = st.grid
 
+    tev = None
+    if st.tev:
+        tev = tev_ipc.TevIPC()
+        if tev.connected:
+            tev.close_image(st.experiment)
+            tev.create_image(st.experiment, grid.nxg, grid.nzg)
+
     ckpt_state = {"next": st.ckptfreq}
 
     def progress(launched, n_target, step, carry):
         if progress_bar:
             _console_pbar(launched, n_target)
+        if tev is not None and tev.connected:
+            tev_ipc.tev_slices(tev, st.experiment,
+                               as_volume(grid, carry.tallies.jmean))
         if input_file is not None and launched >= ckpt_state["next"]:
             ckpt_state["next"] = launched + st.ckptfreq
             write_checkpoint(
                 str(input_file), st.ckptfile, launched,
                 as_volume(grid, carry.tallies.jmean).cpu().numpy())
 
-    want_progress = input_file is not None or progress_bar
+    want_progress = (tev is not None or input_file is not None
+                     or progress_bar)
     _sync(device)
     t0 = time.perf_counter()
-    tallies, bank, launched, steps = simulate(
-        scene, parsed.source, grid, gen, cfg, bank=parsed.detectors,
-        progress=progress if want_progress else None)
-    _sync(device)
+    try:
+        tallies, bank, launched, steps = simulate(
+            scene, parsed.source, grid, gen, cfg, bank=parsed.detectors,
+            progress=progress if want_progress else None)
+        _sync(device)
+    finally:
+        if tev is not None:
+            tev.close()
     elapsed = time.perf_counter() - t0
     if progress_bar:
         _console_pbar(int(launched), nphotons)

@@ -80,6 +80,7 @@ and the surface normals and raycast slopes keep their graph.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from dataclasses import dataclass, replace
 from typing import NamedTuple, Optional
@@ -1533,11 +1534,34 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
 
 def _run_steps(scene, source, grid, generator, carry, cfg, n_steps,
                nphotons):
-    """Advance up to ``n_steps`` megasteps with no host synchronisation.
-    A megastep taken once the run is finished (budget spent, no lane
-    alive) changes no tally and is not counted in ``step``."""
-    for _ in range(n_steps):
+    """Advance up to ``n_steps`` megasteps, stopping once the run is
+    finished (budget spent, no lane alive), where the reference's
+    ``while_loop`` stops (reference engine.py:1957).
+
+    On the CPU the end test is read before every megastep, so exactly the
+    counted megasteps run.  On a card the host never waits for it: each
+    megastep's test is copied to pinned host memory behind an event, and
+    dispatch stops at the first completed event that reads "finished".  The
+    megasteps already queued past the end (a few at most: the card keeps up
+    with the host) change no tally and are not counted in ``step``."""
+    on_card = carry.state.alive.device.type == "cuda"
+    if on_card:
+        flags = torch.empty(n_steps, dtype=torch.bool, pin_memory=True)
+        pending = collections.deque()
+    for i in range(n_steps):
+        if on_card:
+            while pending and pending[0][1].query():
+                j, _ = pending.popleft()
+                if not flags[j]:
+                    return carry
         more = (carry.launched < nphotons) | torch.any(carry.state.alive)
+        if on_card:
+            flags[i].copy_(more, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            pending.append((i, done))
+        elif not more:
+            return carry
         step = carry.step
         carry = transport_step(carry, scene, source, grid, generator, cfg,
                                nphotons)

@@ -10,8 +10,7 @@ the reference-format checkpoint with resume (``kernels.checkpoint_now``,
 - tests/test_checkpoint_resume.py's run on the port's CPU path: 1,800 of
   3,000 photons checkpointed with ``checkpoint_now``, the resume launches
   the other 1,200, the merged fluence is above the partial one and within
-  10% of a full run.  On 2,048 lanes (the reference test's 1,024 would
-  put ``simulate`` on its 128-megastep tail chunks, 4x the time).
+  10% of a full run.  On 2,048 lanes (the reference test runs 1,024).
 """
 
 import dataclasses

@@ -1,6 +1,7 @@
 """The port's entry-point plumbing against the JAX reference: TOML
 parsing, the scene registry, output files and the command line."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -16,8 +17,10 @@ from rsmcrt_tpu.io import writer as jw
 from rsmcrt_tpu.sdfs import scene as jS
 from rsmcrt_tpu_torch import kernels as tk
 from rsmcrt_tpu_torch.config import ConfigError, parse_params as tparse
+from rsmcrt_tpu_torch.io import tev as ttev
 from rsmcrt_tpu_torch.io import writer as tw
 from rsmcrt_tpu_torch.sdfs import scene as tS
+from torch_fake_tev import FakeTevServer, check_tev_run, tev_sphere
 
 torch.set_num_threads(1)
 
@@ -126,17 +129,23 @@ def test_parse_errors(tmp_path, fields, err):
         tk.setup(cfg, device="cpu")
 
 
-def test_unported_kernels_raise(tmp_path):
-    """The escape and inverse kernels' tables parse; the live tev viewer,
-    still to port, raises naming its ROADMAP item."""
+def test_unported_kernels_raise(tmp_path, monkeypatch):
+    """The escape and inverse kernels' tables parse, and the live tev
+    viewer, the last piece once unported, runs: a run with ``tev = true``
+    sends a fake viewer its slices."""
     st = tparse(ROOT / "res" / "escape_test.toml", kernel="escape").settings
     assert st.symmetry_type == "360rotational" and st.nphotons == 2000
     st = tparse(ROOT / "res" / "inverse_test.toml", kernel="inverse").settings
     assert st.inverse["layer"] == 1 and st.inverse["Findmua"]
-    parsed, scene = tk.setup(ROOT / "res" / "sphere.toml", device="cpu")
-    parsed.settings.tev = True
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
-        tk.run_MCRT(parsed, scene, nphotons=10)
+    srv = FakeTevServer()
+    monkeypatch.setattr(ttev, "TevIPC",
+                        functools.partial(ttev.TevIPC, port=srv.port))
+    parsed, scene = tk.setup(tev_sphere(tmp_path, nphotons=10),
+                             device="cpu")
+    res = tk.run_MCRT(parsed, scene, nphotons=10)
+    srv.join()
+    assert res.launched == 10
+    check_tev_run(srv, res, (len(srv.packets) - 2) // 3)
 
 
 def test_writer_files_match_reference(tmp_path):

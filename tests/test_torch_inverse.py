@@ -186,8 +186,8 @@ def test_recovery_uses_scores_with_zero_fd_forwards(monkeypatch):
 
 def test_inverse_entry_points_run(tmp_path):
     """``inverse_MCRT`` (random search) and ``inverse_gradient_descent``
-    on res/inverse_test.toml cut to one step of 2,048 photons (on 2,048
-    lanes: at most 1,024 lanes run 128-megastep chunks)."""
+    on res/inverse_test.toml cut to one step of 2,048 photons on 2,048
+    lanes."""
     toml = tmp_path / "inv.toml"
     toml.write_text(open(CONFIG).read().replace("nphotons = 30000",
                                                 "nphotons = 2048")
