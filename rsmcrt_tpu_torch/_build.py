@@ -19,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from . import obs
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "rsmcrt_tpu_torch"
@@ -93,10 +95,14 @@ def build() -> Path:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
+    """The kernel library, built on first use: a ``setup.build`` span, and
+    the ``build.compiled`` counter 1 when ``nvcc`` ran, 0 when the library
+    was already built."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        with obs.span("setup.build"):
+            lib = ctypes.CDLL(str(build()))
+        obs.count("build.compiled", int(build_seconds > 0.0))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         fn = lib.rsmcrt_deposit_add
         fn.argtypes = [ptr, ptr, ptr, i64, i64, i32, i32, i32, ptr, ptr]

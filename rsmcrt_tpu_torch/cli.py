@@ -8,6 +8,11 @@ Usage::
     python -m rsmcrt_tpu_torch.cli --kernel test res/scat_test2.toml
     python -m rsmcrt_tpu_torch.cli --kernel escape res/escape_test.toml
     python -m rsmcrt_tpu_torch.cli --kernel inverse res/inverse_test.toml
+    python -m rsmcrt_tpu_torch.cli --trace-out data/trace.json res/sphere.toml
+
+``--trace-out FILE`` records the run's spans (:mod:`rsmcrt_tpu_torch.obs`)
+and writes them to ``FILE`` as a Chrome trace once the outputs are
+written.
 """
 
 from __future__ import annotations
@@ -38,7 +43,22 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain PyTorch path)")
+    ap.add_argument("--trace-out", default=None, metavar="FILE",
+                    help="write the run's spans to FILE as a Chrome trace")
     args = ap.parse_args(argv)
+    if args.trace_out is None:
+        return _run(args)
+    from . import obs
+
+    obs.enable()
+    try:
+        return _run(args)
+    finally:
+        obs.disable()
+        obs.write_chrome_trace(args.trace_out)
+
+
+def _run(args) -> int:
 
     if args.kernel == "escape":
         from . import escape

@@ -10,6 +10,8 @@ from pathlib import Path
 
 import numpy as np
 
+from .. import obs
+
 
 def _unique_name(path: Path) -> Path:
     """If the file exists, append ' (n)' (reference: writer.f90:273-292)."""
@@ -74,18 +76,21 @@ def read_nrrd(filename: str | Path):
 
 def write_data(array, filename, overwrite=True, metadata=None,
                dect_id=None):
-    """Dispatch on extension (reference: writer.f90:169-222)."""
+    """Dispatch on extension (reference: writer.f90:169-222); the file's
+    bytes count in the ``io.bytes_written`` counter."""
     path = Path(filename)
     if path.suffix == ".nrrd":
-        return write_nrrd(array, path, overwrite, metadata, dect_id)
-    if path.suffix in (".raw", ".dat"):
+        path = write_nrrd(array, path, overwrite, metadata, dect_id)
+    elif path.suffix in (".raw", ".dat"):
         path.parent.mkdir(parents=True, exist_ok=True)
         if not overwrite:
             path = _unique_name(path)
         with open(path, "wb") as fh:
             fh.write(np.asarray(array).tobytes(order="F"))
-        return path
-    raise ValueError("File type not supported!")
+    else:
+        raise ValueError("File type not supported!")
+    obs.count("io.bytes_written", path.stat().st_size)
+    return path
 
 
 def write_checkpoint(toml_filename: str, filename: str | Path,

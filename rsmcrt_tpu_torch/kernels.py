@@ -29,7 +29,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import default_device
+from . import default_device, obs
 from .config import ParsedConfig, parse_params
 from .io import tev as tev_ipc
 from .io.history import write_history
@@ -91,15 +91,16 @@ def setup(input_file: str | Path, kernel: str = "default", res_dir=None,
           device=None) -> tuple[ParsedConfig, Scene]:
     """Parse the config and build the scene on ``device`` (default: the
     CUDA card; raises when none is visible)
-    (reference: kernelsMod.f90:2225-2319)."""
+    (reference: kernelsMod.f90:2225-2319).  A ``setup.parse`` span."""
     device = torch.device(device) if device is not None else default_device()
-    parsed = parse_params(input_file, res_dir=res_dir, kernel=kernel,
-                          device=device)
-    prims = setup_simulation(
-        parsed.settings.experiment, parsed.geometry,
-        res_dir=Path(res_dir) if res_dir else Path(input_file).parent,
-        device=device)
-    return parsed, build_scene(prims, device=device)
+    with obs.span("setup.parse"):
+        parsed = parse_params(input_file, res_dir=res_dir, kernel=kernel,
+                              device=device)
+        prims = setup_simulation(
+            parsed.settings.experiment, parsed.geometry,
+            res_dir=Path(res_dir) if res_dir else Path(input_file).parent,
+            device=device)
+        return parsed, build_scene(prims, device=device)
 
 
 def _console_pbar(launched, n_target, width=30):
@@ -127,7 +128,9 @@ def run_MCRT(parsed: ParsedConfig, scene: Scene, nphotons=None,
     with ``seed`` (default: the config's ``iseed``).  ``history`` (or the
     config's ``trackHistory``) keeps the paths of detected photons, 64
     events each; ``record_phasor`` (default: the config's ``phasor``)
-    tallies the complex field.  Either takes the plain walk."""
+    tallies the complex field.  Either takes the plain walk.  The job is a
+    ``job`` span of :mod:`~rsmcrt_tpu_torch.obs`, from the transport
+    config to the final synchronisation."""
     st = parsed.settings
     device = scene.device
     nphotons = int(nphotons if nphotons is not None else st.nphotons)
@@ -136,6 +139,7 @@ def run_MCRT(parsed: ParsedConfig, scene: Scene, nphotons=None,
     track_history = history or st.trackHistory
     if record_phasor is None:
         record_phasor = st.phasor
+    job = obs.begin("job")
     cfg = TransportConfig(
         record_phasor=bool(record_phasor),
         nphotons=nphotons,
@@ -190,6 +194,7 @@ def run_MCRT(parsed: ParsedConfig, scene: Scene, nphotons=None,
     finally:
         if tev is not None:
             tev.close()
+        obs.end(job)
     elapsed = time.perf_counter() - t0
     if progress_bar:
         _console_pbar(int(launched), nphotons)
@@ -209,54 +214,56 @@ def run_MCRT(parsed: ParsedConfig, scene: Scene, nphotons=None,
 
 def finalise(result: SimResult, data_dir: str | Path = "data",
              verbose=True):
-    """Normalise and write outputs (reference: kernelsMod.f90:2321-2416)."""
-    st = result.parsed.settings
-    grid = st.grid
-    data_dir = Path(data_dir)
-    n = result.launched
-    metadata = {
-        "grid_data": "fluence map",
-        "real_size": f"{grid.xmax} {grid.ymax} {grid.zmax}",
-        "nphotons": n,
-        "source": st.source,
-        "experiment": st.experiment,
-        "units": st.units,
-    }
+    """Normalise and write outputs (reference: kernelsMod.f90:2321-2416).
+    A ``finalise`` span; the bytes written count in ``io.bytes_written``."""
+    with obs.span("finalise"):
+        st = result.parsed.settings
+        grid = st.grid
+        data_dir = Path(data_dir)
+        n = result.launched
+        metadata = {
+            "grid_data": "fluence map",
+            "real_size": f"{grid.xmax} {grid.ymax} {grid.zmax}",
+            "nphotons": n,
+            "source": st.source,
+            "experiment": st.experiment,
+            "units": st.units,
+        }
 
-    def host(flat):
-        return as_volume(grid, flat).cpu().numpy()
+        def host(flat):
+            return as_volume(grid, flat).cpu().numpy()
 
-    jmean = normalise_fluence(grid, host(result.tallies.jmean), n)
-    write_data(jmean, data_dir / "jmean" / st.outfile,
-               overwrite=st.overwrite, metadata=metadata)
-    emission = normalise_fluence(grid, host(result.tallies.emission), n)
-    write_data(emission, data_dir / "emission" / st.rendersourcefile,
-               overwrite=st.overwrite, metadata=metadata)
-    if st.absorb:
-        write_data(host(result.tallies.absorb),
-                   data_dir / "absorb" / st.outfile_absorb,
+        jmean = normalise_fluence(grid, host(result.tallies.jmean), n)
+        write_data(jmean, data_dir / "jmean" / st.outfile,
                    overwrite=st.overwrite, metadata=metadata)
-    tl = result.tallies
-    if tl.phasor_re.shape[0] > 0:
-        # the complex field as magnitude and components
-        pre, pim = host(tl.phasor_re), host(tl.phasor_im)
-        mag = np.sqrt(pre * pre + pim * pim)
-        for name, vol in (("phasor.nrrd", mag), ("phasor_re.nrrd", pre),
-                          ("phasor_im.nrrd", pim)):
-            write_data(vol, data_dir / "phasor" / name,
+        emission = normalise_fluence(grid, host(result.tallies.emission), n)
+        write_data(emission, data_dir / "emission" / st.rendersourcefile,
+                   overwrite=st.overwrite, metadata=metadata)
+        if st.absorb:
+            write_data(host(result.tallies.absorb),
+                       data_dir / "absorb" / st.outfile_absorb,
                        overwrite=st.overwrite, metadata=metadata)
-    n_tracks = int(tl.track_count)
-    if n_tracks > 0:
-        # the detected photons' paths (reference historyStack.f90)
-        write_history(tl.tracks.cpu().numpy(), n_tracks,
-                      data_dir / st.historyFilename)
-    if result.bank is not None and result.bank.n_detectors > 0:
-        write_detected_photons(result.bank, n, data_dir / "detectors")
-    if verbose:
-        print(f"Average # of scatters per photon: "
-              f"{result.nscatt_per_photon:.4f}")
-        print(f"Photons/s: {result.photons_per_second:.4g}")
-    return jmean
+        tl = result.tallies
+        if tl.phasor_re.shape[0] > 0:
+            # the complex field as magnitude and components
+            pre, pim = host(tl.phasor_re), host(tl.phasor_im)
+            mag = np.sqrt(pre * pre + pim * pim)
+            for name, vol in (("phasor.nrrd", mag), ("phasor_re.nrrd", pre),
+                              ("phasor_im.nrrd", pim)):
+                write_data(vol, data_dir / "phasor" / name,
+                           overwrite=st.overwrite, metadata=metadata)
+        n_tracks = int(tl.track_count)
+        if n_tracks > 0:
+            # the detected photons' paths (reference historyStack.f90)
+            write_history(tl.tracks.cpu().numpy(), n_tracks,
+                          data_dir / st.historyFilename)
+        if result.bank is not None and result.bank.n_detectors > 0:
+            write_detected_photons(result.bank, n, data_dir / "detectors")
+        if verbose:
+            print(f"Average # of scatters per photon: "
+                  f"{result.nscatt_per_photon:.4f}")
+            print(f"Photons/s: {result.photons_per_second:.4g}")
+        return jmean
 
 
 def display_settings(parsed: ParsedConfig, input_file,

@@ -21,10 +21,13 @@ walk with the scores of the config's inverse layer, no fluence), takes
 flight, times ``--steps`` megasteps on the host clock around synchronised
 work, then runs ``--profiled`` more (default ``--steps``) under
 ``torch.profiler`` and prints, per megastep: the wall time, the peak
-device memory, the device kernels launched, their device time, the device
-busy share (device time over the unprofiled wall) and the kernels that
-take most of the device time.  The wall line is printed before the
-profiled megasteps start.  Needs a CUDA card.
+device memory, the device kernels launched, their device time and the
+kernels that take most of it; then, from the spans of
+:mod:`~rsmcrt_tpu_torch.obs` over the profiled megasteps, the host's self
+time in each phase and the device's idle gaps by the phase the host was
+in when each ended (both slowed by the profiler's host activity).  The
+wall line is printed before the profiled megasteps start.  Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import time
 def main(argv=None) -> int:
     import torch
 
-    from . import kernels
+    from . import kernels, obs
     from .transport import engine
 
     ap = argparse.ArgumentParser(prog="rsmcrt_tpu_torch.profile_megastep")
@@ -128,8 +131,12 @@ def main(argv=None) -> int:
           flush=True)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    obs.reset()
+    obs.enable()
     with torch.profiler.profile(activities=acts) as prof:
         carry = steps(n_prof, carry)
+    obs.disable()
+    snap = obs.snapshot()
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kern:
@@ -141,9 +148,7 @@ def main(argv=None) -> int:
     n_k = len(kern) / n_prof
     print(f"[profile] device kernels per megastep {n_k:.0f} "
           f"({n_k / cfg.dda_substeps:.0f} per round of dda_substeps); "
-          f"device time "
-          f"per megastep {per_step / 1e3:.2f} ms; device busy "
-          f"{per_step / 1e3 / (wall * 1e3):.1%} of the unprofiled wall")
+          f"device time per megastep {per_step / 1e3:.2f} ms")
     by_name = collections.Counter()
     count = collections.Counter()
     for e in kern:
@@ -160,6 +165,16 @@ def main(argv=None) -> int:
           f"ms/megastep, {dep_us / dev_us:.3%} of device time, "
           f"{sum(count[n] for n in deposit) / n_prof:.0f} launches per "
           f"megastep")
+    for name, row in sorted(obs.summary(snap).items(),
+                            key=lambda kv: -kv[1]["self_ms"]):
+        print(f"[profile] span {name}: {row['self_ms'] / n_prof:.3f} ms "
+              f"self, {row['count'] / n_prof:.0f} spans per megastep")
+    busy = [(e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+    for name, sec in obs.idle_by_span(snap, busy):
+        print(f"[profile] device idle while the host was in {name}: "
+              f"{sec * 1e3 / n_prof:.3f} ms per megastep")
     return 0
 
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from ..maths.transforms import apply_rotation, apply_transform
 from . import primitives as sdp
 from .scene import _leaves, eval_spec, tree_map
@@ -489,29 +490,32 @@ def ray_bound_idx(scene, pos, dirn):
     """Smallest positive crossing parameter over the analytic prims and the
     prim that owns it: ``(t [...], idx [...] int32)`` with ``idx`` in
     concatenated-group order (the order :func:`surface_normal` consumes);
-    ``idx`` is 0 when nothing crosses (t = +inf)."""
-    best = torch.full(pos.shape[:-1], _INF, dtype=pos.dtype,
-                      device=pos.device)
-    bidx = torch.zeros(pos.shape[:-1], dtype=torch.int32, device=pos.device)
-    offset = 0
-    pm, dm = pos[..., None, :], dirn[..., None, :]
-    for spec, params, size in zip(scene.specs, scene.group_params,
-                                  scene.group_sizes):
-        if not _is_analytic_spec(spec):
+    ``idx`` is 0 when nothing crosses (t = +inf).  A ``geometry`` span."""
+    with obs.span("geometry"):
+        best = torch.full(pos.shape[:-1], _INF, dtype=pos.dtype,
+                          device=pos.device)
+        bidx = torch.zeros(pos.shape[:-1], dtype=torch.int32,
+                           device=pos.device)
+        offset = 0
+        pm, dm = pos[..., None, :], dirn[..., None, :]
+        for spec, params, size in zip(scene.specs, scene.group_params,
+                                      scene.group_sizes):
+            if not _is_analytic_spec(spec):
+                offset += size
+                continue
+            ts = _ray_prim(spec, params, pm, dm)  # [..., size]
+            if size == 1:
+                t = ts[..., 0]
+                better = t < best
+                bidx = torch.where(better, offset, bidx)
+            else:
+                t, arg = torch.min(ts, dim=-1)
+                better = t < best
+                bidx = torch.where(better, offset + arg.to(torch.int32),
+                                   bidx)
+            best = torch.where(better, t, best)
             offset += size
-            continue
-        ts = _ray_prim(spec, params, pm, dm)  # [..., size]
-        if size == 1:
-            t = ts[..., 0]
-            better = t < best
-            bidx = torch.where(better, offset, bidx)
-        else:
-            t, arg = torch.min(ts, dim=-1)
-            better = t < best
-            bidx = torch.where(better, offset + arg.to(torch.int32), bidx)
-        best = torch.where(better, t, best)
-        offset += size
-    return best, bidx
+        return best, bidx
 
 
 def _autograd_normal(spec, prm, pos):
@@ -541,28 +545,29 @@ def surface_normal(scene, pos, idx):
     ``M[:3, :3] @ grad_local``); every other kind -- modifiers and CSG
     models included -- is differentiated by autograd through
     :func:`~rsmcrt_tpu_torch.sdfs.scene.eval_spec`.  Normalised with the
-    reference's +1e-30 under the square root."""
-    out = torch.zeros_like(pos)
-    offset = 0
-    for spec, params, size in zip(scene.specs, scene.group_params,
-                                  scene.group_sizes):
-        if size == 1:
-            prm = tree_map(lambda v: v[0], params)
-        else:
-            member = torch.clamp(idx - offset, 0, size - 1).long()
-            prm = tree_map(lambda v: v[member], params)
-        if spec.kind in ("sphere", "box"):
-            T = prm["transform"]
-            p = apply_transform(T, pos)
-            if spec.kind == "sphere":
-                g = sdp.grad_sd_sphere(p, prm["radius"])
+    reference's +1e-30 under the square root.  A ``geometry`` span."""
+    with obs.span("geometry"):
+        out = torch.zeros_like(pos)
+        offset = 0
+        for spec, params, size in zip(scene.specs, scene.group_params,
+                                      scene.group_sizes):
+            if size == 1:
+                prm = tree_map(lambda v: v[0], params)
             else:
-                g = sdp.grad_sd_box(p, prm["half_lengths"])
-            n = (g[..., None, :] * T[..., :3, :3]).sum(-1)
-        else:
-            n = _autograd_normal(spec, prm, pos)
-        n = n / torch.sqrt(torch.sum(n * n, dim=-1, keepdim=True) + 1e-30)
-        sel = (idx >= offset) & (idx < offset + size)
-        out = torch.where(sel[..., None], n, out)
-        offset += size
-    return out
+                member = torch.clamp(idx - offset, 0, size - 1).long()
+                prm = tree_map(lambda v: v[member], params)
+            if spec.kind in ("sphere", "box"):
+                T = prm["transform"]
+                p = apply_transform(T, pos)
+                if spec.kind == "sphere":
+                    g = sdp.grad_sd_sphere(p, prm["radius"])
+                else:
+                    g = sdp.grad_sd_box(p, prm["half_lengths"])
+                n = (g[..., None, :] * T[..., :3, :3]).sum(-1)
+            else:
+                n = _autograd_normal(spec, prm, pos)
+            n = n / torch.sqrt(torch.sum(n * n, dim=-1, keepdim=True) + 1e-30)
+            sel = (idx >= offset) & (idx < offset + size)
+            out = torch.where(sel[..., None], n, out)
+            offset += size
+        return out

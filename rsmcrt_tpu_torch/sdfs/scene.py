@@ -22,6 +22,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import obs
 from ..grid import np_dtype
 from ..maths.transforms import apply_transform, identity
 from ..optics.piecewise import sample_piecewise1d_at
@@ -500,14 +501,15 @@ def _leaves(tree):
 
 def eval_scene(scene: Scene, pos: torch.Tensor) -> torch.Tensor:
     """Distances to every prim: ``pos [..., 3] -> ds [..., N]`` in the
-    user's prim order."""
-    pm = pos[..., None, :]  # member axis of each group
-    cols = [eval_spec(spec, params, pm)
-            for spec, params in zip(scene.specs, scene.group_params)]
-    ds = cols[0] if len(cols) == 1 else torch.cat(cols, dim=-1)
-    if scene._perm_idx is None:
-        return ds
-    return ds.index_select(-1, scene._perm_idx)
+    user's prim order.  A ``geometry`` span."""
+    with obs.span("geometry"):
+        pm = pos[..., None, :]  # member axis of each group
+        cols = [eval_spec(spec, params, pm)
+                for spec, params in zip(scene.specs, scene.group_params)]
+        ds = cols[0] if len(cols) == 1 else torch.cat(cols, dim=-1)
+        if scene._perm_idx is None:
+            return ds
+        return ds.index_select(-1, scene._perm_idx)
 
 
 def scene_layer(ds: torch.Tensor) -> torch.Tensor:

@@ -88,6 +88,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..constants import CHANCE, THRESHOLD, TWOPI
 from ..detectors.detectors import (check_bins, flush_bins, ordered_cols,
                                    record_hits)
@@ -1001,7 +1002,10 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
     """One megastep of the wavefront.  The voxel tallies (and the track
     slots) of ``carry`` are updated in place; the returned carry holds the
     new lane state.  ``draws`` injects the megastep's uniforms; otherwise
-    they are drawn from ``generator``."""
+    they are drawn from ``generator``.  Its four phases are spans of
+    :mod:`~rsmcrt_tpu_torch.obs`: ``megastep.analysis``,
+    ``megastep.detectors``, ``megastep.walk``, ``megastep.interactions``."""
+    obs_tok = obs.begin("megastep.analysis")
     cfg.check_ported()
     if nphotons is None:
         nphotons = cfg.nphotons
@@ -1268,6 +1272,8 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
     # --- detectors: one test per whole segment (reference hit protocol,
     # inttau2.f90:195-200); with path history, the paths of lanes that
     # hit are kept ------------------------------------------------------
+    obs.end(obs_tok)
+    obs_tok = obs.begin("megastep.detectors")
     bank = carry.bank
     track_count, track_dropped = tl.track_count, tl.track_dropped
     pmc_stats = tl.pmc_stats
@@ -1297,9 +1303,12 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
         pmc_len = pmc_len + torch.where(alive & need_seg & in_inverse,
                                         seg_rem, 0.0)
 
+    obs.end(obs_tok)
+
     # =================================================================
     # Phase 2: the walk
     # =================================================================
+    obs_tok = obs.begin("megastep.walk")
     K = cfg.dda_substeps
     deps_k = None
     if chaining:
@@ -1398,6 +1407,8 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
     # walk, the rare lane that leaves the chain with an exhausted segment
     # flagged to interact)
     # =================================================================
+    obs.end(obs_tok)
+    obs_tok = obs.begin("megastep.interactions")
     nscatt = tl.nscatt
     if chaining:
         nscatt = nscatt + out["n_scat"].to(dtype)
@@ -1527,6 +1538,7 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
                           mom_pos2=mom_pos2, perf=perf, pmc_stats=pmc_stats,
                           track_count=track_count,
                           track_dropped=track_dropped)
+    obs.end(obs_tok)
     return SimCarry(state=new_state, tallies=new_tallies, bank=bank,
                     launched=launched, step=carry.step + 1,
                     qmc_shifts=qmc_shifts)
@@ -1543,7 +1555,12 @@ def _run_steps(scene, source, grid, generator, carry, cfg, n_steps,
     megastep's test is copied to pinned host memory behind an event, and
     dispatch stops at the first completed event that reads "finished".  The
     megasteps already queued past the end (a few at most: the card keeps up
-    with the host) change no tally and are not counted in ``step``."""
+    with the host) change no tally and are not counted in ``step``.
+
+    Each dispatch is a ``megastep`` span and counts in the
+    ``host_loop.megasteps_dispatched`` and ``host_loop.megasteps_by_width``
+    counters; a chunk left because the run finished counts in
+    ``host_loop.early_exits``."""
     on_card = carry.state.alive.device.type == "cuda"
     if on_card:
         flags = torch.empty(n_steps, dtype=torch.bool, pin_memory=True)
@@ -1553,19 +1570,25 @@ def _run_steps(scene, source, grid, generator, carry, cfg, n_steps,
             while pending and pending[0][1].query():
                 j, _ = pending.popleft()
                 if not flags[j]:
+                    obs.count("host_loop.early_exits")
                     return carry
         more = (carry.launched < nphotons) | torch.any(carry.state.alive)
+        if not (on_card or more):
+            obs.count("host_loop.early_exits")
+            return carry
+        obs_tok = obs.begin("megastep")
         if on_card:
             flags[i].copy_(more, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
             pending.append((i, done))
-        elif not more:
-            return carry
         step = carry.step
         carry = transport_step(carry, scene, source, grid, generator, cfg,
                                nphotons)
         carry.step = step + more.to(torch.int32)
+        obs.end(obs_tok)
+        obs.count("host_loop.megasteps_dispatched")
+        obs.count_by("host_loop.megasteps_by_width", cfg.n_lanes)
     return carry
 
 
@@ -1595,20 +1618,21 @@ def warmup(scene: Scene, source: Source, grid: CartGrid,
     """Build the CUDA kernels (on a CUDA scene) and run one megastep at
     every wavefront width of the shrink ladder, so a timed run pays no
     build and no first-use allocation.  Leaves no tally behind and the
-    caller's bank as it was."""
+    caller's bank as it was.  A ``setup.warmup`` span."""
     cfg.check_ported()
-    if scene.device.type == "cuda":
-        from .. import _build
+    with obs.span("setup.warmup"):
+        if scene.device.type == "cuda":
+            from .. import _build
 
-        _build.load()
-    for lanes in shrink_ladder(cfg.n_lanes, min_lanes):
-        cfg_l = replace(cfg, n_lanes=lanes)
-        carry = init_carry(grid, cfg_l, bank=bank,
-                           dtype=scene.tables.mus.dtype)
-        _run_steps(scene, source, grid, generator, carry, cfg_l, 1,
-                   max(lanes // 8, 1))
-    if scene.device.type == "cuda":
-        torch.cuda.synchronize(scene.device)
+            _build.load()
+        for lanes in shrink_ladder(cfg.n_lanes, min_lanes):
+            cfg_l = replace(cfg, n_lanes=lanes)
+            carry = init_carry(grid, cfg_l, bank=bank,
+                               dtype=scene.tables.mus.dtype)
+            _run_steps(scene, source, grid, generator, carry, cfg_l, 1,
+                       max(lanes // 8, 1))
+        if scene.device.type == "cuda":
+            torch.cuda.synchronize(scene.device)
 
 
 class SimRun:
@@ -1619,7 +1643,14 @@ class SimRun:
     whether the run is done, :meth:`result` gives what :func:`simulate`
     returns.  Several runs, each on its own generator and device, can be
     interleaved: every run's chunk is queued before any is settled
-    (``parallel.mesh``)."""
+    (``parallel.mesh``).
+
+    ``job`` is the run's :mod:`~rsmcrt_tpu_torch.obs` job id: the open
+    ``job`` span's, else a new one, so interleaved runs' spans stay apart.
+    :meth:`launch` and :meth:`settle` are ``host_loop.launch`` and
+    ``host_loop.settle`` spans; megasteps dispatched below the run's first
+    width count in ``host_loop.tail_megasteps``, compactions in
+    ``host_loop.tail_shrinks``."""
 
     def __init__(self, scene: Scene, source: Source, grid: CartGrid,
                  generator: torch.Generator, cfg: TransportConfig,
@@ -1639,16 +1670,24 @@ class SimRun:
         self.step = 0
         self.launched = 0
         self.done = False
+        self.job = obs.job() or obs.new_job()
 
     def launch(self):
         """Queue the next chunk of megasteps (no host synchronisation)."""
-        cur = self.cur_cfg
-        # at tail widths use longer chunks: host round trips dominate there
-        n = self.chunk_steps if cur.n_lanes > 1024 else 8 * self.chunk_steps
-        n = min(n, self.cfg.max_steps - self.step)
-        self.carry = _run_steps(self.scene, self.source, self.grid,
-                                self.generator, self.carry, cur, n,
-                                self.n_target)
+        with obs.span("host_loop.launch", self.job):
+            cur = self.cur_cfg
+            # at tail widths use longer chunks: host round trips dominate
+            # there
+            n = (self.chunk_steps if cur.n_lanes > 1024
+                 else 8 * self.chunk_steps)
+            n = min(n, self.cfg.max_steps - self.step)
+            before = obs.counters.get("host_loop.megasteps_dispatched", 0)
+            self.carry = _run_steps(self.scene, self.source, self.grid,
+                                    self.generator, self.carry, cur, n,
+                                    self.n_target)
+            if cur.n_lanes < self.cfg.n_lanes:
+                obs.count("host_loop.tail_megasteps", obs.counters.get(
+                    "host_loop.megasteps_dispatched", 0) - before)
 
     def settle(self, progress=None) -> bool:
         """Synchronise on the chunk just launched: drain the kept tracks,
@@ -1656,31 +1695,33 @@ class SimRun:
         the run (budget spent and no lane alive, or ``max_steps``
         reached) or compact the survivors into a wavefront 1/8 as wide.
         Returns whether the run is done."""
-        carry, cfg = self.carry, self.cfg
-        self.launched = int(carry.launched)
-        self.step = int(carry.step)
-        tc = int(carry.tallies.track_count) if cfg.max_tracks > 0 else 0
-        if tc > 0:
-            self.drained.append(carry.tallies.tracks[:tc].cpu().clone())
-            carry.tallies.track_count = torch.zeros_like(
-                carry.tallies.track_count)
-        if progress is not None:
-            progress(self.launched, self.n_target, self.step, carry)
-        if self.step >= cfg.max_steps:
-            self.done = True
-            return True
-        n_alive = int(torch.sum(carry.state.alive))
-        spent = self.launched >= self.n_target
-        if spent and n_alive == 0:
-            self.done = True
-            return True
-        cur = self.cur_cfg
-        if (self.tail_shrink and spent and cur.n_lanes > self.min_lanes
-                and n_alive <= cur.n_lanes // 8):
-            new_B = max(self.min_lanes, cur.n_lanes // 8)
-            self.carry = _compact_lanes(carry, new_B)
-            self.cur_cfg = replace(cur, n_lanes=new_B)
-        return False
+        with obs.span("host_loop.settle", self.job):
+            carry, cfg = self.carry, self.cfg
+            self.launched = int(carry.launched)
+            self.step = int(carry.step)
+            tc = int(carry.tallies.track_count) if cfg.max_tracks > 0 else 0
+            if tc > 0:
+                self.drained.append(carry.tallies.tracks[:tc].cpu().clone())
+                carry.tallies.track_count = torch.zeros_like(
+                    carry.tallies.track_count)
+            if progress is not None:
+                progress(self.launched, self.n_target, self.step, carry)
+            if self.step >= cfg.max_steps:
+                self.done = True
+                return True
+            n_alive = int(torch.sum(carry.state.alive))
+            spent = self.launched >= self.n_target
+            if spent and n_alive == 0:
+                self.done = True
+                return True
+            cur = self.cur_cfg
+            if (self.tail_shrink and spent and cur.n_lanes > self.min_lanes
+                    and n_alive <= cur.n_lanes // 8):
+                new_B = max(self.min_lanes, cur.n_lanes // 8)
+                self.carry = _compact_lanes(carry, new_B)
+                self.cur_cfg = replace(cur, n_lanes=new_B)
+                obs.count("host_loop.tail_shrinks")
+            return False
 
     def result(self):
         """``(tallies, bank, launched, steps)`` as :func:`simulate` returns
@@ -1713,11 +1754,16 @@ def simulate(scene: Scene, source: Source, grid: CartGrid,
     (``tail_shrink``).  With path history the kept tracks are drained to
     the host every chunk, so the device's ``max_tracks`` slots hold one
     chunk's worth and the run's count is unbounded; the returned
-    ``tallies.tracks`` holds them all, ``track_count`` their number."""
-    run = SimRun(scene, source, grid, generator, cfg, bank=bank,
-                 chunk_steps=chunk_steps, nphotons=nphotons,
-                 tail_shrink=tail_shrink, min_lanes=min_lanes)
-    while True:
-        run.launch()
-        if run.settle(progress):
-            return run.result()
+    ``tallies.tracks`` holds them all, ``track_count`` their number.  The
+    run is a ``job`` span of its own when no job span is open."""
+    job = None if obs.job() else obs.begin("job")
+    try:
+        run = SimRun(scene, source, grid, generator, cfg, bank=bank,
+                     chunk_steps=chunk_steps, nphotons=nphotons,
+                     tail_shrink=tail_shrink, min_lanes=min_lanes)
+        while True:
+            run.launch()
+            if run.settle(progress):
+                return run.result()
+    finally:
+        obs.end(job)
