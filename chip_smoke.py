@@ -63,7 +63,9 @@ Phases (each raises on failure; the exit code is non-zero on any):
     megastep, as in the reference); launches equal the photons asked
     for, the emission sums to them, the tallies are finite and
     non-negative, the fluence volume is written and every deposit went
-    through the kernel.
+    through the kernel.  The walk's CUDA graph (about 330,000 kernel
+    nodes here) is captured in the run: its recording and instantiation
+    seconds and its pool's memory are logged.
 13. omg, card against CPU: res/omg.toml cut to 32^3 and 16,000 photons on
     the card and on the CPU (plain deposits); nscatt/photon, path/photon
     and a coarse fluence profile must agree.  The CPU run takes about as
@@ -950,12 +952,15 @@ def phase_omg(dev, tmp, card, n=131_072, max_steps=20):
     """The marched chained walk at full width: res/omg.toml on the 200^3
     grid through ``kernels.default_MCRT``, cut from 500,000 photons to
     ``n`` and at most ``max_steps`` megasteps."""
-    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch import kernels, obs
     from rsmcrt_tpu_torch.transport import deposit as dep
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     dep.reset_counts()
+    graphs = ("megastep.walk_record_ns", "megastep.walk_instantiate_ns",
+              "megastep.walk_pool_bytes")
+    before = [dict(obs.counters.get(k, {})) for k in graphs]
     with contextlib.chdir(tmp):  # the run's checkpoint file lands here
         res = kernels.default_MCRT(OMG, data_dir=tmp / "omg", nphotons=n,
                                    verbose=False, device=dev,
@@ -971,6 +976,14 @@ def phase_omg(dev, tmp, card, n=131_072, max_steps=20):
         f"path/photon {float(tl.jmean.double().sum()) / res.launched:.5f}, "
         f"lanes {kernels.default_lanes(n, dev)} [{card}]")
     log(f"[omg] deposit kernel launches {launches}, plain calls {plain}")
+    rec, inst, pool = ({w: n - b.get(w, 0)
+                        for w, n in obs.counters.get(k, {}).items()}
+                       for k, b in zip(graphs, before))
+    for lanes in sorted(w for w, n in rec.items() if n):
+        log(f"[omg] walk graph at {lanes} lanes: recorded in "
+            f"{rec[lanes] / 1e9:.2f} s, instantiated in "
+            f"{inst[lanes] / 1e9:.2f} s, pool {pool[lanes] / 2**20:.1f} "
+            f"MiB [{card}]")
     if res.launched != n:
         raise AssertionError(f"omg launched {res.launched}")
     _check_tallies(tl, GRID ** 3, "omg")
@@ -1312,7 +1325,7 @@ def _launched_wavelengths(rows):
     ``cand_k``, the reference's ``consumed`` mask, engine.py:1652-1658)."""
     from rsmcrt_tpu_torch.transport import engine
 
-    real = (engine.transport_step, engine.sample_source, engine._chained_dda)
+    real = (engine.transport_step, engine.sample_source, engine._chained_walk)
     step_rows = {}
 
     def step(carry, scene, source, grid, gen, cfg, nphotons=None,
@@ -1343,12 +1356,12 @@ def _launched_wavelengths(rows):
             step_rows["cand_k"] = res["cand_k"]
         return res
 
-    engine.transport_step, engine.sample_source, engine._chained_dda = (
+    engine.transport_step, engine.sample_source, engine._chained_walk = (
         step, sample, chain)
     try:
         yield rows
     finally:
-        engine.transport_step, engine.sample_source, engine._chained_dda = \
+        engine.transport_step, engine.sample_source, engine._chained_walk = \
             real
 
 
@@ -3028,19 +3041,20 @@ def phase_dryrun(dev, card):
     return launches
 
 
-def _run_steps_to_the_end(scene, source, grid, generator, carry, cfg,
-                          n_steps, nphotons):
-    """The chunk before the early exit (commit 57e9074): every megastep of
-    the chunk is dispatched, only those of an unfinished run counted."""
-    from rsmcrt_tpu_torch.transport import engine
+class _NeverFinished:
+    """The chunk before the early exit (commit 57e9074), as the end tests
+    of a chunk (``engine._end_flags``): none is ever read, so every
+    megastep of the chunk is dispatched, only those of an unfinished run
+    counted."""
 
-    for _ in range(n_steps):
-        more = (carry.launched < nphotons) | torch.any(carry.state.alive)
-        step = carry.step
-        carry = engine.transport_step(carry, scene, source, grid, generator,
-                                      cfg, nphotons)
-        carry.step = step + more.to(torch.int32)
-    return carry
+    def record(self, i, more):
+        pass
+
+    def held(self, i):
+        return False
+
+    def finished(self, i):
+        return False
 
 
 def phase_early_exit(dev, tmp, card):
@@ -3062,7 +3076,7 @@ def phase_early_exit(dev, tmp, card):
     small = tmp / "early_exit_3000.toml"
     small.write_text(CKPT_CFG.format(n=3000, load="false",
                                      ckpt=tmp / "unused.ckpt"))
-    real_step, real_run = engine.transport_step, engine._run_steps
+    real_step, real_flags = engine.transport_step, engine._end_flags
     calls = []
 
     def counting(*a, **k):
@@ -3098,8 +3112,8 @@ def phase_early_exit(dev, tmp, card):
     try:
         for name, run in (("slab", slab), ("3000 photons", three_thousand)):
             for which in ("parent", "change", "change", "parent"):
-                engine._run_steps = (_run_steps_to_the_end
-                                     if which == "parent" else real_run)
+                engine._end_flags = ((lambda n, dev: _NeverFinished())
+                                     if which == "parent" else real_flags)
                 calls.clear()
                 dep.reset_counts()
                 n, launched, steps, wall = run()
@@ -3112,7 +3126,7 @@ def phase_early_exit(dev, tmp, card):
                 log(f"[early-exit] {name}, {which}: {len(calls)} megasteps "
                     f"dispatched, {steps} counted, {wall:.2f} s [{card}]")
     finally:
-        engine.transport_step, engine._run_steps = real_step, real_run
+        engine.transport_step, engine._end_flags = real_step, real_flags
     for name in ("slab", "3000 photons"):
         old, new = rows[(name, "parent")], rows[(name, "change")]
         log(f"[early-exit] {name}: dispatched/counted parent "

@@ -15,7 +15,9 @@ here every shard's generator is seeded from ``(seed, shard index)``.
 
 The shards are driven from one host loop (:class:`engine.SimRun`): each
 round queues a chunk of megasteps on every shard before it synchronises
-on any of them, so shards on different cards run together.
+on any of them, so shards on different cards run together.  The host
+waits on a card only to keep it at most ``engine.IN_FLIGHT`` megasteps
+ahead, and then only once before it moves on to the next card.
 """
 
 from __future__ import annotations
@@ -127,7 +129,8 @@ def run_shards(scene, source, grid, seed, cfg: TransportConfig, bank,
     """One :class:`SimRun` of ``per_shard`` photons for each of
     ``devices``, shard ``shard_ids[i]`` on ``devices[i]``, driven to the
     end from one host loop: every round queues a chunk on each unfinished
-    shard, then settles each.  Returns the runs."""
+    shard, in turns that stop at each card's run-ahead bound
+    (:meth:`SimRun.launch`), then settles each.  Returns the runs."""
     runs = []
     for dev, sid in zip(devices, shard_ids):
         sc, src, g, bk = _on(dev, scene, source, grid, bank)
@@ -136,8 +139,11 @@ def run_shards(scene, source, grid, seed, cfg: TransportConfig, bank,
                            chunk_steps=chunk_steps))
     active = list(runs)
     while active:
-        for run in active:
-            run.launch()
+        # a card at its run-ahead bound gives way to the others: each pass
+        # waits on a card at most once, before its first megastep
+        queuing = active
+        while queuing:
+            queuing = [r for r in queuing if not r.launch(wait=False)]
         for run in active:
             run.settle()
         active = [r for r in active if not r.done]

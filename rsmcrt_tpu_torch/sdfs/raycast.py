@@ -364,9 +364,10 @@ def ray_triprism(p, d, h1, h2):
     lo = torch.full(shape, -_INF, dtype=p.dtype, device=p.device)
     hi = torch.full(shape, _INF, dtype=p.dtype, device=p.device)
     for n, b in planes:
-        nv = torch.as_tensor(n, dtype=p.dtype, device=p.device)
-        s = torch.sum(p * nv, dim=-1) - b  # > 0 outside this half-space
-        dn = torch.sum(d * nv, dim=-1)
+        # the dot products term by term: no normal tensor to copy to the
+        # device (a copy waits for the card and cannot be captured)
+        s = p[..., 0] * n[0] + p[..., 1] * n[1] + p[..., 2] * n[2] - b
+        dn = d[..., 0] * n[0] + d[..., 1] * n[1] + d[..., 2] * n[2]
         t = -s / torch.where(dn == 0.0, 1.0, dn)
         para_in = (dn == 0.0) & (s <= 0.0)
         l_i = torch.where(dn < 0.0, t,

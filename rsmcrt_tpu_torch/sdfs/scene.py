@@ -398,14 +398,26 @@ class Scene:
     layer_ids: tuple
     n_prims: int
     _perm_idx: Optional[torch.Tensor] = field(init=False, repr=False)
+    #: the prims with no closed-form crossing, which the walk marches:
+    #: their columns in user order (``eval_scene``'s, long) and in concat
+    #: order (what ``surface_normal`` consumes, int32), made here once, as
+    #: a copy from the host waits for the card and cannot be captured
+    march_cols: tuple = field(init=False, repr=False)
 
     def __post_init__(self):
+        from .raycast import analytic_column_mask
+
         self.perm = tuple(int(p) for p in self.perm)
         if self.perm == tuple(range(self.n_prims)):
             self._perm_idx = None
         else:
             self._perm_idx = torch.as_tensor(
                 self.perm, dtype=torch.long, device=self.device)
+        na = [i for i, a in enumerate(analytic_column_mask(self)) if not a]
+        self.march_cols = (
+            torch.as_tensor(na, dtype=torch.long, device=self.device),
+            torch.as_tensor([self.perm[i] for i in na], dtype=torch.int32,
+                            device=self.device))
 
     @property
     def device(self) -> torch.device:

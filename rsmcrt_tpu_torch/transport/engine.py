@@ -20,7 +20,8 @@ A batch of photon lanes advances in lockstep, one *megastep* per
      absorption, surface and in-chain respawn events in place (reference
      update_grids, inttau2.f90:408-445, and kernelsMod.f90:1958-2066);
      without the fluence estimator every round jumps a whole segment
-     (inttau2.f90:446-462);
+     (inttau2.f90:446-462).  On a card its kernels are captured once as
+     a CUDA graph and replayed (:func:`_chained_walk`);
    - the *plain* walk: one segment a megastep, its first ``dda_substeps``
      voxel intervals from a closed-form merge of the three axes' wall
      crossings (:func:`_closed_form_dda`), or one jump without the
@@ -82,6 +83,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from dataclasses import dataclass, replace
 from typing import NamedTuple, Optional
 
@@ -438,6 +440,19 @@ def _layer_of_concat(scene, device) -> torch.Tensor:
                            dtype=torch.int32, device=device)
 
 
+def _device_const(value, dtype, dev) -> torch.Tensor:
+    """``value`` (a tuple of numbers) as a ``dtype`` tensor on ``dev``,
+    made once: a copy from the host waits for the card."""
+    key = (value, dtype, dev)
+    t = _consts.get(key)
+    if t is None:
+        t = _consts[key] = torch.as_tensor(value, dtype=dtype, device=dev)
+    return t
+
+
+_consts: dict = {}
+
+
 def _segment_probe(scene, pos, dirn, tau_dist, avail_cap, land_eps, eps,
                    ana_mask, march_iters):
     """Bound of the next straight flight segment from ``pos`` along
@@ -472,12 +487,7 @@ def _segment_probe(scene, pos, dirn, tau_dist, avail_cap, land_eps, eps,
     else:
         avail_ana = torch.full((B,), torch.inf, dtype=pos.dtype, device=dev)
         hidx_ana = torch.zeros((B,), dtype=torch.int32, device=dev)
-    # non-analytic columns in user order (eval_scene's column order) and
-    # their concat-order indices (what surface_normal consumes)
-    na_user = [i for i, a in enumerate(ana_mask) if not a]
-    na_cols = torch.as_tensor(na_user, dtype=torch.long, device=dev)
-    na_concat = torch.as_tensor([scene.perm[i] for i in na_user],
-                                dtype=torch.int32, device=dev)
+    na_cols, na_concat = scene.march_cols
     bound = torch.clamp(avail_ana, max=avail_cap)
 
     s = torch.zeros((B,), dtype=pos.dtype, device=dev)
@@ -896,16 +906,188 @@ def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
              if inv > 0 else None))
 
 
+# ---------------------------------------------------------------------------
+# The chained walk replayed from a CUDA graph
+# ---------------------------------------------------------------------------
+
+#: the most walk graphs kept, least recently used dropped first.  A run
+#: replays one a width of its shrink ladder (two in every benchmark cell,
+#: three from 262,144 lanes); a process that builds many scenes, as the
+#: tests and ``chip_smoke.py`` do, keeps the graphs of the last few, and
+#: 16 pools of at most 158 MiB each (the largest measured, PERF.md) hold
+#: under 3% of an 80-GB card
+WALK_GRAPHS_KEPT = 16
+#: the captured walks, by :func:`_walk_key`
+walk_graphs: collections.OrderedDict = collections.OrderedDict()
+# set by :func:`warmup`: its captures and replays are set-up, not counted
+_warming = False
+
+
+def _tensors(tree, out: list):
+    """Append the tensors of ``tree`` (nested tuples, lists, dicts and
+    dataclasses) to ``out`` in a fixed order; returns the tree's structure,
+    each tensor's shape, dtype and device in its place (hashable)."""
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+        return ("tensor", tuple(tree.shape), tree.dtype, tree.device)
+    if isinstance(tree, (tuple, list)):
+        return (type(tree), tuple(_tensors(x, out) for x in tree))
+    if isinstance(tree, dict):
+        return (dict, tuple((k, _tensors(v, out)) for k, v in tree.items()))
+    if dataclasses.is_dataclass(tree):
+        return (type(tree), tuple((f.name, _tensors(getattr(tree, f.name),
+                                                    out))
+                                  for f in dataclasses.fields(tree) if f.init))
+    return tree
+
+
+def _rebuild(tree, tensors):
+    """``tree`` with its tensors replaced, in :func:`_tensors`' order, by
+    those the iterator ``tensors`` gives."""
+    if isinstance(tree, torch.Tensor):
+        return next(tensors)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_rebuild(x, tensors) for x in tree)
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, tensors) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _rebuild(getattr(tree, f.name), tensors)
+            for f in dataclasses.fields(tree) if f.init})
+    return tree
+
+
+def _walk_key(scene, grid, cfg: TransportConfig, tables, land_eps, seg_cap,
+              structure):
+    """What a captured walk depends on: the scene, grid and tables (read by
+    address), every transport option but the photon budget and the
+    megastep cap (constants of the recorded kernels), and the
+    ``structure`` of the walk's inputs (:func:`_tensors`: the lane width,
+    the types, the device, the detector bank's families and bins, respawn
+    candidates and pMC fields present or not).  Neither the photons of a
+    job nor its seed is in it, so one capture serves every job of a run's
+    scene and width."""
+    return (id(scene), id(grid), id(tables),
+            replace(cfg, nphotons=0, max_steps=0), land_eps, seg_cap,
+            structure)
+
+
+def _walk_graph_engages(scene, cfg: TransportConfig, live: list) -> bool:
+    """Whether the chained walk replays from a CUDA graph, given its input
+    tensors ``live``: on a card, with no pMC tangents (``inverse_prim``:
+    ``torch.func`` through the walk) and no input or scene parameter in an
+    autograd graph."""
+    if live[0].device.type != "cuda" or cfg.inverse_prim > 0:
+        return False
+    if torch.is_grad_enabled():
+        params = []
+        _tensors((scene.tables, scene.group_params), params)
+        if any(t.requires_grad for t in live + params):
+            return False
+    return True
+
+
+class _WalkGraph:
+    """One capture of :func:`_chained_dda`: the walk recorded once on
+    static copies of its inputs, then replayed.  A call copies the live
+    inputs into the static ones, replays on the current stream and copies
+    the outputs out into fresh tensors, so nothing it returns aliases a
+    buffer the next replay overwrites; an output that is one of the inputs
+    (a tally the walk leaves, a detector's geometry) is the live input."""
+
+    def __init__(self, scene, grid, cfg, tables, land_eps, seg_cap,
+                 walk_in, live):
+        self.owners = (scene, grid, tables)
+        dev = live[0].device
+        self.static_in = [t.clone() for t in live]
+        static = _rebuild(walk_in, iter(self.static_in))
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        reserved = torch.cuda.memory_reserved(dev)
+        self.graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter_ns()
+        with torch.cuda.stream(side):
+            self.graph.capture_begin()
+            try:
+                out = _chained_dda(scene, grid, cfg, tables=tables,
+                                   land_eps=land_eps, seg_cap=seg_cap,
+                                   **static)
+            except BaseException:
+                try:
+                    self.graph.capture_end()
+                except RuntimeError:
+                    pass  # the walk's own error is the one to raise
+                raise
+            t1 = time.perf_counter_ns()
+            self.graph.capture_end()
+        t2 = time.perf_counter_ns()
+        cur.wait_stream(side)
+        self.out, self.static_out = out, []
+        _tensors(out, self.static_out)
+        index = {id(t): i for i, t in enumerate(self.static_in)}
+        self.passed = [index.get(id(t)) for t in self.static_out]
+        lanes = cfg.n_lanes
+        obs.count_by("megastep.walk_record_ns", lanes, t1 - t0)
+        obs.count_by("megastep.walk_instantiate_ns", lanes, t2 - t1)
+        obs.count_by("megastep.walk_pool_bytes", lanes,
+                     torch.cuda.memory_reserved(dev) - reserved)
+
+    def owned_by(self, scene, grid, tables) -> bool:
+        return all(a is b for a, b in zip(self.owners, (scene, grid, tables)))
+
+    def __call__(self, live):
+        for dst, src in zip(self.static_in, live):
+            dst.copy_(src)
+        self.graph.replay()
+        return _rebuild(self.out, iter(
+            t.clone() if i is None else live[i]
+            for t, i in zip(self.static_out, self.passed)))
+
+
+def _chained_walk(scene, grid, cfg: TransportConfig, tables, land_eps,
+                  seg_cap, **walk_in):
+    """The chained walk of one megastep (:func:`_chained_dda`'s arguments
+    by name): replayed from the CUDA graph of its key
+    (:func:`_walk_key`; captured at its first use) where
+    :func:`_walk_graph_engages`, otherwise :func:`_chained_dda` run
+    eagerly.  Outside :func:`warmup` a capture counts in
+    ``megastep.walk_captures`` and a replay in ``megastep.walk_replays``;
+    every capture adds its recording and instantiation nanoseconds and
+    the bytes its graph's pool reserved to ``megastep.walk_record_ns``,
+    ``megastep.walk_instantiate_ns`` and ``megastep.walk_pool_bytes``, by
+    lane width."""
+    live = []
+    structure = _tensors(walk_in, live)
+    if not _walk_graph_engages(scene, cfg, live):
+        return _chained_dda(scene, grid, cfg, tables=tables,
+                            land_eps=land_eps, seg_cap=seg_cap, **walk_in)
+    key = _walk_key(scene, grid, cfg, tables, land_eps, seg_cap, structure)
+    g = walk_graphs.get(key)
+    if g is not None and g.owned_by(scene, grid, tables):
+        walk_graphs.move_to_end(key)
+    else:
+        g = walk_graphs[key] = _WalkGraph(scene, grid, cfg, tables, land_eps,
+                                          seg_cap, walk_in, live)
+        while len(walk_graphs) > WALK_GRAPHS_KEPT:
+            walk_graphs.popitem(last=False)
+        if not _warming:
+            obs.count("megastep.walk_captures")
+    out = g(live)
+    if not _warming:
+        obs.count("megastep.walk_replays")
+    return out
+
+
 def _plain_march(scene, pos, direction, ds, tau_dist, avail, interior, eps,
-                 ana_mask, march_iters, seg_cap):
+                 march_iters, seg_cap):
     """The plain walk's capped sphere-trace march over the non-analytic
     prims (reference package: engine.py:1391-1424): ``march_iters`` scene
     evaluations, each after an advance by the last certified distance,
     then a final advance that needs no evaluation (the next megastep's
     analysis evaluates there anyway).  Returns the segment length and
     whether it ends at the optical-depth distance."""
-    na_cols = torch.as_tensor([i for i, a in enumerate(ana_mask) if not a],
-                              dtype=torch.long, device=pos.device)
+    na_cols = scene.march_cols[0]
 
     def d_na(ds_all):
         return torch.amin(torch.abs(ds_all.index_select(-1, na_cols)),
@@ -1127,7 +1309,7 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
     # 5-point eval (nudge probe + 4 tetrahedron normal taps) ----------
     smallstep = d_sdf + 2.0 * eps
     p2 = pos + smallstep[:, None] * direction
-    tet = torch.as_tensor(_TET, dtype=dtype, device=dev)
+    tet = _device_const(_TET, dtype, dev)
     pts5 = torch.cat([p2[:, None, :], pos[:, None, :] + tet * (10.0 * eps)],
                      dim=1)  # [B, 5, 3]
     ev5 = eval_scene(scene, pts5)  # [B, 5, N]
@@ -1230,7 +1412,7 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
         if cfg.march_iters > 0:
             interior_len, interior_interact = _plain_march(
                 scene, pos, direction, ds, tau_dist, avail, interior, eps,
-                ana_mask, cfg.march_iters, seg_cap)
+                cfg.march_iters, seg_cap)
         else:
             bound = torch.minimum(d_sdf, avail)
             interior_len = torch.minimum(bound, tau_dist)
@@ -1341,11 +1523,13 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
             respawn_cand = (cb(r_pos), cb(r_dir), cb(r_tau), cb(r_layer),
                             cb(r_phase), cb(r_wl), cb(r_good), allow)
 
-        out = _chained_dda(
-            scene, grid, cfg, draws.uc, pos, direction, weight, tau,
-            seg_rem, seg_interact, seg_srf, seg_cont, seg_prim, layer,
-            alive, steps, bounces, wavelength, phase, tables, land_eps,
-            seg_cap, tl.mom_pos, tl.mom_pos2, bank=bank,
+        out = _chained_walk(
+            scene, grid, cfg, tables, land_eps, seg_cap, uc=draws.uc,
+            pos=pos, direction=direction, weight=weight, tau=tau,
+            seg_rem=seg_rem, seg_interact=seg_interact, seg_srf=seg_srf,
+            seg_cont=seg_cont, seg_prim=seg_prim, layer=layer, alive=alive,
+            steps=steps, bounces=bounces, wavelength=wavelength, phase=phase,
+            mom_pos=tl.mom_pos, mom_pos2=tl.mom_pos2, bank=bank,
             respawn=respawn_cand,
             pmc=((pmc_cnt, pmc_len, pmc_hg, pmc_fn, pmc_bn, pmc_dd)
                  if inv > 0 else None))
@@ -1544,52 +1728,134 @@ def transport_step(carry: SimCarry, scene: Scene, source: Source,
                     qmc_shifts=qmc_shifts)
 
 
-def _run_steps(scene, source, grid, generator, carry, cfg, n_steps,
-               nphotons):
-    """Advance up to ``n_steps`` megasteps, stopping once the run is
-    finished (budget spent, no lane alive), where the reference's
-    ``while_loop`` stops (reference engine.py:1957).
+#: megasteps a card may hold that the host has not seen end: before it
+#: dispatches megastep ``i``, the host waits for megastep ``i - IN_FLIGHT``
+#: to end and reads whether megastep ``i - IN_FLIGHT + 1`` was needed
+IN_FLIGHT = 2
+
+
+class _EndFlags:
+    """The end test of each megastep queued on a card, read without a
+    synchronisation: :meth:`record` copies it to pinned host memory behind
+    an event (``event``, ``torch.cuda.Event`` unless a test stubs it), and
+    :meth:`finished` reads the tests whose events have completed, oldest
+    first, waiting for an event that would leave the card more than
+    :data:`IN_FLIGHT` megasteps ahead of what the host has seen end."""
+
+    def __init__(self, n: int, event=None, pin_memory: bool = True):
+        self.flags = torch.empty(n, dtype=torch.bool, pin_memory=pin_memory)
+        self.event = torch.cuda.Event if event is None else event
+        self.pending = collections.deque()
+
+    def record(self, i: int, more: torch.Tensor):
+        """Megastep ``i`` is needed iff ``more`` (read before it)."""
+        self.flags[i].copy_(more, non_blocking=True)
+        done = self.event()
+        # on the stream of the run's card, which need not be the current
+        # device's (``parallel.mesh``'s shards)
+        done.record(torch.cuda.current_stream(more.device)
+                    if more.is_cuda else None)
+        self.pending.append((i, done))
+
+    def held(self, i: int) -> bool:
+        """Whether :meth:`finished` would wait before megastep ``i``."""
+        for j, done in self.pending:
+            if j > i - IN_FLIGHT + 1:
+                return False
+            if not done.query():
+                return True
+        return False
+
+    def finished(self, i: int) -> bool:
+        """Before megastep ``i`` is dispatched: whether a test read says
+        the run was finished."""
+        while self.pending:
+            j, done = self.pending[0]
+            if j > i - IN_FLIGHT + 1 and not done.query():
+                return False
+            done.synchronize()
+            self.pending.popleft()
+            if not self.flags[j]:
+                return True
+        return False
+
+
+def _end_flags(n_steps: int, device):
+    """The end tests of a chunk on a card (:class:`_EndFlags`); None on
+    the CPU, where the test is read before every megastep."""
+    return _EndFlags(n_steps) if device.type == "cuda" else None
+
+
+class _Chunk:
+    """Up to ``n_steps`` megasteps of a run, dispatched by :meth:`queue`
+    and stopping once the run is finished (budget spent, no lane alive),
+    where the reference's ``while_loop`` stops (reference
+    engine.py:1957).  ``carry`` is the carry after the last megastep
+    dispatched; ``over`` says whether the chunk is all dispatched.
 
     On the CPU the end test is read before every megastep, so exactly the
-    counted megasteps run.  On a card the host never waits for it: each
-    megastep's test is copied to pinned host memory behind an event, and
-    dispatch stops at the first completed event that reads "finished".  The
-    megasteps already queued past the end (a few at most: the card keeps up
-    with the host) change no tally and are not counted in ``step``.
+    counted megasteps run.  On a card the host never synchronises on it:
+    each megastep's test is copied to pinned host memory behind an event
+    (:class:`_EndFlags`), dispatch stops at the first completed event that
+    reads "finished", and the host waits on an event only to keep at most
+    :data:`IN_FLIGHT` megasteps on the card that it has not seen end.  The
+    megasteps queued past the end (one, where the card sets the pace) change
+    no tally and are not counted in ``step``.
 
     Each dispatch is a ``megastep`` span and counts in the
     ``host_loop.megasteps_dispatched`` and ``host_loop.megasteps_by_width``
     counters; a chunk left because the run finished counts in
     ``host_loop.early_exits``."""
-    on_card = carry.state.alive.device.type == "cuda"
-    if on_card:
-        flags = torch.empty(n_steps, dtype=torch.bool, pin_memory=True)
-        pending = collections.deque()
-    for i in range(n_steps):
-        if on_card:
-            while pending and pending[0][1].query():
-                j, _ = pending.popleft()
-                if not flags[j]:
-                    obs.count("host_loop.early_exits")
-                    return carry
-        more = (carry.launched < nphotons) | torch.any(carry.state.alive)
-        if not (on_card or more):
-            obs.count("host_loop.early_exits")
-            return carry
-        obs_tok = obs.begin("megastep")
-        if on_card:
-            flags[i].copy_(more, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            pending.append((i, done))
-        step = carry.step
-        carry = transport_step(carry, scene, source, grid, generator, cfg,
-                               nphotons)
-        carry.step = step + more.to(torch.int32)
-        obs.end(obs_tok)
-        obs.count("host_loop.megasteps_dispatched")
-        obs.count_by("host_loop.megasteps_by_width", cfg.n_lanes)
-    return carry
+
+    def __init__(self, scene, source, grid, generator, carry, cfg, n_steps,
+                 nphotons):
+        self.args = (scene, source, grid, generator)
+        self.carry, self.cfg, self.nphotons = carry, cfg, nphotons
+        self.n, self.i, self.over = n_steps, 0, n_steps <= 0
+        self.flags = _end_flags(n_steps, carry.state.alive.device)
+
+    def queue(self, wait: bool = True):
+        """Dispatch the chunk's megasteps.  With ``wait`` false, wait for
+        the card only before the first of them: return instead where the
+        host would wait again, and leave the rest to the next call."""
+        scene, source, grid, generator = self.args
+        flags, first = self.flags, self.i
+        while not self.over:
+            if flags is not None:
+                if not wait and self.i > first and flags.held(self.i):
+                    return
+                if flags.finished(self.i):
+                    break
+            carry = self.carry
+            more = (carry.launched < self.nphotons) | torch.any(
+                carry.state.alive)
+            if flags is None and not more:
+                break
+            obs_tok = obs.begin("megastep")
+            if flags is not None:
+                flags.record(self.i, more)
+            self.carry = transport_step(carry, scene, source, grid,
+                                        generator, self.cfg, self.nphotons)
+            self.carry.step = carry.step + more.to(torch.int32)
+            obs.end(obs_tok)
+            obs.count("host_loop.megasteps_dispatched")
+            obs.count_by("host_loop.megasteps_by_width", self.cfg.n_lanes)
+            self.i += 1
+            self.over = self.i >= self.n
+        else:
+            return
+        obs.count("host_loop.early_exits")
+        self.over = True
+
+
+def _run_steps(scene, source, grid, generator, carry, cfg, n_steps,
+               nphotons):
+    """Advance up to ``n_steps`` megasteps, stopping once the run is
+    finished: one :class:`_Chunk`, all of it dispatched."""
+    chunk = _Chunk(scene, source, grid, generator, carry, cfg, n_steps,
+                   nphotons)
+    chunk.queue()
+    return chunk.carry
 
 
 def _compact_lanes(carry: SimCarry, new_B: int) -> SimCarry:
@@ -1617,28 +1883,38 @@ def warmup(scene: Scene, source: Source, grid: CartGrid,
            min_lanes: int = 4096):
     """Build the CUDA kernels (on a CUDA scene) and run one megastep at
     every wavefront width of the shrink ladder, so a timed run pays no
-    build and no first-use allocation.  Leaves no tally behind and the
+    build, no first-use allocation and no capture: where the chained walk
+    replays from a CUDA graph (:func:`_walk_graph_engages`), each width's
+    megastep captures its walk's graph and replays it, and these count in
+    no ``megastep.walk_*`` counter.  Leaves no tally behind and the
     caller's bank as it was.  A ``setup.warmup`` span."""
+    global _warming
     cfg.check_ported()
+    on_card = scene.device.type == "cuda"
     with obs.span("setup.warmup"):
-        if scene.device.type == "cuda":
+        if on_card:
             from .. import _build
 
             _build.load()
-        for lanes in shrink_ladder(cfg.n_lanes, min_lanes):
-            cfg_l = replace(cfg, n_lanes=lanes)
-            carry = init_carry(grid, cfg_l, bank=bank,
-                               dtype=scene.tables.mus.dtype)
-            _run_steps(scene, source, grid, generator, carry, cfg_l, 1,
-                       max(lanes // 8, 1))
-        if scene.device.type == "cuda":
+        _warming = True
+        try:
+            for lanes in shrink_ladder(cfg.n_lanes, min_lanes):
+                cfg_l = replace(cfg, n_lanes=lanes)
+                carry = init_carry(grid, cfg_l, bank=bank,
+                                   dtype=scene.tables.mus.dtype)
+                _run_steps(scene, source, grid, generator, carry, cfg_l, 1,
+                           max(lanes // 8, 1))
+        finally:
+            _warming = False
+        if on_card:
             torch.cuda.synchronize(scene.device)
 
 
 class SimRun:
     """One forward run driven a chunk at a time, the loop of
-    :func:`simulate`: :meth:`launch` queues a chunk of megasteps without
-    synchronising, :meth:`settle` synchronises once on its results (the
+    :func:`simulate`: :meth:`launch` queues a chunk of megasteps with no
+    synchronisation but the run-ahead bound's, :meth:`settle` synchronises
+    once on its results (the
     host drain of path history, the end test, the tail shrink) and says
     whether the run is done, :meth:`result` gives what :func:`simulate`
     returns.  Several runs, each on its own generator and device, can be
@@ -1670,24 +1946,39 @@ class SimRun:
         self.step = 0
         self.launched = 0
         self.done = False
+        self.chunk = None  # the chunk being queued (:class:`_Chunk`)
         self.job = obs.job() or obs.new_job()
 
-    def launch(self):
-        """Queue the next chunk of megasteps (no host synchronisation)."""
+    def launch(self, wait: bool = True) -> bool:
+        """Queue the chunk of megasteps, a new one after each
+        :meth:`settle`, and return whether it is all queued.  The host
+        synchronises on nothing but, on a card, the end of the megastep
+        that keeps the card at most :data:`IN_FLIGHT` megasteps ahead
+        (:class:`_Chunk`).  With ``wait`` false it waits there at most
+        once, before its first megastep, and returns False where it would
+        wait again: the next call goes on with the chunk, so a loop over
+        several cards (``parallel.mesh``) queues on the others meanwhile."""
         with obs.span("host_loop.launch", self.job):
             cur = self.cur_cfg
-            # at tail widths use longer chunks: host round trips dominate
-            # there
-            n = (self.chunk_steps if cur.n_lanes > 1024
-                 else 8 * self.chunk_steps)
-            n = min(n, self.cfg.max_steps - self.step)
-            before = obs.counters.get("host_loop.megasteps_dispatched", 0)
-            self.carry = _run_steps(self.scene, self.source, self.grid,
+            if self.chunk is None:
+                # at tail widths use longer chunks: host round trips
+                # dominate there
+                n = (self.chunk_steps if cur.n_lanes > 1024
+                     else 8 * self.chunk_steps)
+                n = min(n, self.cfg.max_steps - self.step)
+                self.chunk = _Chunk(self.scene, self.source, self.grid,
                                     self.generator, self.carry, cur, n,
                                     self.n_target)
+            before = obs.counters.get("host_loop.megasteps_dispatched", 0)
+            self.chunk.queue(wait)
+            self.carry = self.chunk.carry
             if cur.n_lanes < self.cfg.n_lanes:
                 obs.count("host_loop.tail_megasteps", obs.counters.get(
                     "host_loop.megasteps_dispatched", 0) - before)
+            if not self.chunk.over:
+                return False
+            self.chunk = None
+            return True
 
     def settle(self, progress=None) -> bool:
         """Synchronise on the chunk just launched: drain the kept tracks,
