@@ -25,60 +25,19 @@ import contextlib
 import importlib
 import importlib.util
 import json
-import math
 import subprocess
 import sys
 import time
-import tomllib
-from dataclasses import dataclass
 from pathlib import Path
 
 import torch
 
 from . import compare
+from .cell import ROOT, Cell, cell_metrics, clean, load_cell
 from .reference import plainmc
 from .trace import Tracer, breakdown, union_seconds, warm_profiler
 
-ROOT = Path(__file__).resolve().parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "rsmcrt_tpu")
 MASK63 = (1 << 63) - 1
-
-
-@dataclass
-class Cell:
-    name: str
-    workload: dict
-    traffic: dict
-    toml: Path
-    meta: dict
-    root: Path
-
-    @property
-    def config(self) -> dict:
-        with open(self.toml, "rb") as f:
-            return tomllib.load(f)
-
-
-def load_cell(name: str, root: Path = ROOT) -> Cell:
-    """The cell ``name`` from the files under ``root``."""
-    root = Path(root)
-    w = json.loads((root / "workloads" / f"{name}.json").read_text())
-    traffic = json.loads((root / "traffic" / f"{w['traffic']}.json")
-                         .read_text())
-    meta = json.loads((root / "configs" / f"{w['config']}.json").read_text())
-    return Cell(name, w, traffic, root / "configs" / f"{w['config']}.toml",
-                meta, root)
-
-
-def benchmark_file(root: Path = ROOT) -> dict:
-    return json.loads((Path(root).parent / "BENCHMARK.json").read_text())
-
-
-def cell_metrics(cell: Cell, kind: str) -> list:
-    """``BENCHMARK.json``'s ``end_to_end`` or ``per_layer`` entries that
-    this cell reports."""
-    return [m for m in benchmark_file(cell.root)[kind]
-            if cell.name in m.get("workloads", [cell.name])]
 
 
 def load_reader(root: Path, metric: str):
@@ -103,21 +62,6 @@ def mix(seed: int, k: int) -> int:
 
 
 REFERENCE_STREAM = 1 << 40
-
-
-def forbidden_modules() -> list:
-    return sorted({m.split(".")[0] for m in list(sys.modules)}
-                  & set(FORBIDDEN))
-
-
-def _clean(err) -> bool:
-    """True when no forbidden module is loaded; else names them on
-    ``err``."""
-    found = forbidden_modules()
-    if found:
-        print(f"perf_bench: {found} imported in the benchmark's process",
-              file=err)
-    return not found
 
 
 def _sync(dev):
@@ -218,19 +162,41 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
     """One run of ``cell_name``: prints the result line to ``out`` and
     the compared numbers to ``err``; returns the exit code.  ``device``
     other than ``cuda`` (and ``photons``, ``reference_photons``) is for
-    the CPU tests: the line then carries no metric."""
+    the CPU tests: the line then carries no metric.  A cell whose
+    ``chips`` is N > 1 runs as N processes, one a card
+    (:mod:`perf_bench.ranks`)."""
     t0 = time.perf_counter() if t0 is None else t0
     out = sys.stdout if out is None else out
     err = sys.stderr if err is None else err
     cell = load_cell(cell_name, root)
-    chips = int(cell.workload.get("chips", 1))
+    chips = cell.chips
     on_card = device == "cuda"
     if on_card and (not torch.cuda.is_available()
                     or torch.cuda.device_count() < chips):
         print(f"perf_bench: {cell_name} needs {chips} CUDA card(s); "
               f"found {torch.cuda.device_count()}", file=err)
         return 3
-    dev = torch.device("cuda:0" if on_card else device)
+    if chips > 1:
+        from . import ranks
+
+        return ranks.run(cell, seed, seconds, trace, device, t0, photons,
+                         reference_photons, out, err,
+                         cpu_threads=torch.get_num_threads())
+    return run_cell(cell, seed, seconds, trace,
+                    torch.device("cuda:0" if on_card else device), t0,
+                    photons, reference_photons, out, err)
+
+
+def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, dev,
+             t0: float, photons: int | None, reference_photons: int | None,
+             out, err, group=None) -> int:
+    """The run itself, on ``dev``.  With ``group`` (a
+    :class:`perf_bench.group.Group`) this process is one rank of several:
+    every rank sets up, meets the others, and runs the same jobs; rank 0
+    alone traces, and once the ranks have exchanged their job counts and
+    peaks it alone compares and prints."""
+    lead = group is None or group.rank == 0
+    on_card = dev.type == "cuda"
 
     from rsmcrt_tpu_torch import kernels
     from rsmcrt_tpu_torch.transport import engine
@@ -249,15 +215,17 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
     gen.manual_seed(mix(seed, REFERENCE_STREAM + 1))
     engine.warmup(scene, parsed.source, parsed.settings.grid, gen, cfg,
                   bank=parsed.detectors)
-    if trace and on_card:
+    if trace and on_card and lead:
         warm_profiler(dev)
     _sync(dev)
+    if group is not None:
+        group.barrier()
     setup_s = time.perf_counter() - t0
 
     # ---- window ---------------------------------------------------------
     tracer = Tracer(engine, int(traffic["trace_from_megastep"]),
                     int(traffic["trace_megasteps"]), profile=on_card) \
-        if trace else None
+        if trace and lead else None
     results = []
     with tracer or contextlib.nullcontext():
         _sync(dev)
@@ -265,15 +233,28 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
         while True:
             results.append(kernels.run_MCRT(
                 parsed, scene, seed=mix(seed, len(results)), **job))
-            if time.perf_counter() - start >= seconds:
+            more = time.perf_counter() - start < seconds
+            if group is not None:
+                more = group.decide(more)  # rank 0's clock decides
+            if not more:
                 break
-        window_s = time.perf_counter() - start  # run_MCRT synchronised
+        # run_MCRT synchronised; the ranks, in decide
+        window_s = time.perf_counter() - start
     photons_done = sum(r.launched for r in results)
     job_steps = [int(r.steps) for r in results]
     job_s = [r.elapsed for r in results]
-    if not _clean(err):
-        return 4
+    ok = clean(err)
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    by_rank = None
+    if group is not None:
+        # every rank's jobs, peak and look at sys.modules; leaves the group
+        by_rank = group.exchange([len(results), peak, int(ok)])
+        if not lead:
+            return 0 if ok else 4
+        ok = all(row[2] for row in by_rank)
+        peak = max(row[1] for row in by_rank)
+    if not ok:
+        return 4
     counted = sum(job_steps)
     grid = plainmc.Grid.from_toml(cell.config, tuple(cell.workload["block"]))
     jobs = [job_tallies(r, n_job, max_steps, grid.counts, grid.block,
@@ -292,17 +273,26 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
     per_job = [compare.job_numbers(j, ref) for j in jobs]
     failed = sum(not compare.judge(n, limits)[0] for n in per_job)
     correct, checks = compare.judge(compare.worst(per_job), limits)
+    if by_rank is not None:
+        jobs_by_rank = [row[0] for row in by_rank]
+        differ = max(jobs_by_rank) - min(jobs_by_rank)
+        checks["rank_jobs_differ"] = {"value": differ, "limit": 0}
+        correct = correct and differ == 0
 
     # ---- the line ---------------------------------------------------------
     metrics, extra = {}, {}
     card = card_info(dev)
     device_rec = {"platform": "gpu" if on_card else "cpu",
-                  "kind": card["name"], "count": chips,
+                  "kind": card["name"],
+                  "count": 1 if group is None else group.world,
                   "memory_peak_bytes": int(peak)}
     window = {"jobs": len(jobs), "photons": photons_done,
               "job_megasteps": job_steps, "job_s": job_s,
               "window_s": window_s, "photons_per_s": photons_done / window_s,
               "reference_s": reference_s, "seed": seed}
+    if by_rank is not None:
+        window.update(jobs_by_rank=jobs_by_rank,
+                      memory_peak_bytes_by_rank=[row[1] for row in by_rank])
     if trace and layer_trace is not None:
         window.update(dispatched=layer_trace.dispatched, counted=counted,
                       stretch_s=layer_trace.stretch_s)
@@ -327,25 +317,10 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
             "metrics": metrics, "device": device_rec, **extra,
             "card": card, "window": window, "checks": checks}
     # the reference's scene and the metric readers have loaded since
-    if not _clean(err):
+    if not clean(err):
         return 4
     print(json.dumps(line), file=out, flush=True)
     for name, c in checks.items():
         print(f"check {name}: {c['value']!r} (limit {c['limit']!r})",
               file=err, flush=True)
     return 0
-
-
-def main(argv=None, t0: float | None = None) -> int:
-    import argparse
-
-    p = argparse.ArgumentParser(prog="python3 -m perf_bench.run",
-                                description=__doc__.split("\n\n")[0])
-    p.add_argument("--workload", required=True)
-    p.add_argument("--seed", type=int, required=True)
-    p.add_argument("--seconds", type=float, required=True)
-    p.add_argument("--trace", type=int, choices=(0, 1), default=0)
-    a = p.parse_args(argv)
-    if not math.isfinite(a.seconds) or a.seconds <= 0:
-        p.error("--seconds must be positive")
-    return run(a.workload, a.seed, a.seconds, bool(a.trace), t0=t0)

@@ -5,7 +5,8 @@
 
 run from the root of a checkout.  Prints one JSON line (the last line of
 standard output) and, last on standard error, each compared number beside
-its limit.  Needs as many CUDA cards as the cell asks for.
+its limit.  Needs as many CUDA cards as the cell asks for; a cell on
+several cards runs as one process a card (``ranks.py``).
 """
 
 import time
@@ -32,9 +33,19 @@ def _cache_dirs():
 
 def main(argv=None) -> int:
     _cache_dirs()
+    from perf_bench import cell
+
+    a = cell.parse_args(argv, description=__doc__.split("\n\n")[0])
+    found = cell.load_cell(a.workload)
+    if found.chips > 1:
+        # one process a card; this one imports no PyTorch
+        from perf_bench import ranks
+
+        return ranks.run(found, a.seed, a.seconds, bool(a.trace), "cuda",
+                         T0, None, None, sys.stdout, sys.stderr)
     from perf_bench import harness
 
-    return harness.main(argv, t0=T0)
+    return harness.run(a.workload, a.seed, a.seconds, bool(a.trace), t0=T0)
 
 
 if __name__ == "__main__":

@@ -10,9 +10,10 @@ REPO = BENCH.parent
 
 
 def tiny_sphere(root: Path, limits: dict, photons=20000, ref=40000,
-                max_steps=400, name="tiny.fluence"):
+                max_steps=400, name="tiny.fluence", chips=1):
     """A cell of the default sphere on a 40^3 grid (10^3 tally bins), with
-    the given limits, under ``root``; returns the cell's name."""
+    the given limits, on ``chips`` ranks, under ``root``; returns the
+    cell's name."""
     for sub in ("configs", "traffic", "workloads", "metrics"):
         (root / sub).mkdir(parents=True, exist_ok=True)
     toml = (BENCH / "configs" / "default_sphere.toml").read_text()
@@ -27,7 +28,7 @@ def tiny_sphere(root: Path, limits: dict, photons=20000, ref=40000,
         {"record_fluence": True, "max_steps": max_steps,
          "trace_from_megastep": 2, "trace_megasteps": 2}))
     (root / "workloads" / f"{name}.json").write_text(json.dumps(
-        {"config": "tiny_sphere", "traffic": "tiny", "chips": 1,
+        {"config": "tiny_sphere", "traffic": "tiny", "chips": chips,
          "why": "test", "block": [4, 4, 4], "reference_photons": ref,
          "reference_chunk": 65536, "limits": limits}))
     bench = root.parent / "BENCHMARK.json"

@@ -5,7 +5,9 @@ A run of a small copy of ``sphere.fluence`` (the default sphere on 40^3,
 limits, is driven with the timed path broken underneath, skipping only the
 look for a card.  Each fault a cell of this benchmark can have turns
 ``correct`` false; the sound run and its control bracket them.  The
-exchange between cards is not among them: every cell runs on one card."""
+exchange between cards is not among them: no cell shares a job between
+cards yet (``kernels.run_MCRT`` ignores the process group of a cell's
+ranks); ``test_perf_bench_ranks.py`` breaks the ranks themselves."""
 
 import dataclasses
 
