@@ -35,6 +35,8 @@ from .io import tev as tev_ipc
 from .io.history import write_history
 from .io.writer import (read_checkpoint, write_checkpoint, write_data,
                         write_detected_photons)
+from .parallel import distributed
+from .parallel.mesh import _check_sharded_cfg, shard_seed
 from .render import render_geometry
 from .scenes import setup_simulation
 from .sdfs.scene import Scene, build_scene
@@ -130,19 +132,41 @@ def run_MCRT(parsed: ParsedConfig, scene: Scene, nphotons=None,
     events each; ``record_phasor`` (default: the config's ``phasor``)
     tallies the complex field.  Either takes the plain walk.  The job is a
     ``job`` span of :mod:`~rsmcrt_tpu_torch.obs`, from the transport
-    config to the final synchronisation."""
+    config to the final synchronisation.
+
+    Under an initialised ``torch.distributed`` group of world size W > 1
+    (the reference's MPI build) the job is shared over the ranks: rank r
+    runs ``distributed.job_share(nphotons, r, W)`` photons (``nphotons //
+    W``, one more on the first ``nphotons % W`` ranks, so the shares add
+    up to ``nphotons``) on ``default_lanes`` of its share, with the
+    generator seeded ``mesh.shard_seed(seed, r)``, then
+    ``distributed.reduce_result`` all-reduces the result, so every rank
+    returns the whole job.  Path history is refused there, and only rank
+    0 draws the progress bar, streams to tev and writes checkpoints (of
+    its own share).  With no group, or a group of one, nothing of this
+    happens: no collective, no added synchronisation, the seed as
+    given."""
     st = parsed.settings
     device = scene.device
     nphotons = int(nphotons if nphotons is not None else st.nphotons)
+    seed = int(seed if seed is not None else st.iseed)
+    share, want_tev = nphotons, st.tev
+    shared = distributed.shared_rank()
+    if shared is not None:
+        rank, world = shared
+        share = distributed.job_share(nphotons, rank, world)
+        seed = shard_seed(seed, rank)
+        if rank:  # the console, the viewer and the checkpoint are rank 0's
+            progress_bar, input_file, want_tev = False, None, False
     n_lanes = int(n_lanes if n_lanes is not None else
-                  default_lanes(nphotons, device))
+                  default_lanes(share, device))
     track_history = history or st.trackHistory
     if record_phasor is None:
         record_phasor = st.phasor
     job = obs.begin("job")
     cfg = TransportConfig(
         record_phasor=bool(record_phasor),
-        nphotons=nphotons,
+        nphotons=share,
         n_lanes=n_lanes,
         survival_bias=survival_bias,
         record_fluence=record_fluence,
@@ -157,12 +181,14 @@ def run_MCRT(parsed: ParsedConfig, scene: Scene, nphotons=None,
         **fast_path_defaults(fluence=record_fluence, device=device),
     )
     cfg.check_ported()
+    if shared is not None:
+        _check_sharded_cfg(cfg)
     gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed if seed is not None else st.iseed))
+    gen.manual_seed(seed)
     grid = st.grid
 
     tev = None
-    if st.tev:
+    if want_tev:
         tev = tev_ipc.TevIPC()
         if tev.connected:
             tev.close_image(st.experiment)
@@ -191,6 +217,10 @@ def run_MCRT(parsed: ParsedConfig, scene: Scene, nphotons=None,
             scene, parsed.source, grid, gen, cfg, bank=parsed.detectors,
             progress=progress if want_progress else None)
         _sync(device)
+        if shared is not None:
+            tallies, bank, launched, steps = distributed.reduce_result(
+                tallies, bank, launched, steps,
+                distributed.comm_device(device))
     finally:
         if tev is not None:
             tev.close()
