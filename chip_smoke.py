@@ -3,9 +3,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only
 
-``--kernels-only`` runs phases 1-3, 23, 27 and 24 (the deposit kernels,
-the probe kernels and the gradient run whose gathers phase 23 times) and
-prints no result line.
+``--kernels-only`` runs phases 1-3, 34, 23, 27 and 24 (the deposit
+kernels, the walk kernel, the probe kernels and the gradient run whose
+gathers phase 23 times) and prints no result line.
 What bounds the deposit kernels is measured apart, by
 ``python -m rsmcrt_tpu_torch.profile_deposit``.
 
@@ -208,6 +208,24 @@ Phases (each raises on failure; the exit code is non-zero on any):
     phase 9 gates its first slab run with the early exit.
     Each run of phases 29-33 must launch the deposit kernel and make no
     plain call.
+34. the walk kernel against the rounds in PyTorch on the card: one
+    megastep's walk inputs (after 2 warm megasteps) of the benchmark's
+    configurations sphere.fluence (perf_bench/configs/default_sphere_cut,
+    fluence on, 1 respawn candidate), slab.detect (vdh_slab, fluence off,
+    3 candidates, its detector bank) and sphere.nofluence (default_sphere,
+    fluence off, 3 candidates), each at 32,768 and 4,096 lanes, K = 64,
+    with a main-path run's options (``kernels.fast_path_defaults``);
+    ``engine._fused_walk`` against ``engine._torch_rounds``: no lane's
+    events differ, every lane's state within 1e-5 (relative, 1e-6
+    absolute), the same counts, the bank's bins within 1e-3 of their sum
+    (the rows are added in another order).  The kernel (one
+    ``walk_kernel.walk``) timed with CUDA events beside the rounds in
+    PyTorch run eagerly, and its byte bound (every input read once, every
+    output written once).  The main path's runs (phases 4-33) must run
+    the walk kernel: its record's launches are the megasteps of those runs
+    that ran it (``megastep.walk_fused``; a replay of the walk's CUDA
+    graph runs it with no launch from the host), and
+    ``walk_kernel.kernel_launches``, reset before them, must count some.
 
 Phase 17's wavelengths are those the run launched: the engine's source
 sampler is wrapped for that run (``_launched_wavelengths``).
@@ -2411,6 +2429,157 @@ def _probe_times(kernel, plain, library):
     return min(t_k1, t_k2), min(t_p1, t_p2), t_lib, cold_k, cold_lib
 
 
+#: the benchmark's one-card cells for phase 34: (configuration, fluence)
+WALK_CELLS = {"sphere.fluence": ("default_sphere_cut", True),
+              "slab.detect": ("vdh_slab", False),
+              "sphere.nofluence": ("default_sphere", False)}
+#: phase 34's lane state, compared within 1e-5 on every lane
+WALK_STATE = ("pos", "dir", "weight", "tau", "seg_rem", "wavelength",
+              "phase", "deps_k", "absorb_w")
+#: phase 34's event records, equal on every lane
+WALK_EVENTS = ("seg_interact", "seg_srf", "seg_cont", "seg_prim", "layer",
+               "alive", "steps", "bounces", "cand_k", "flat_k",
+               "absorb_flat")
+
+
+def _walk_inputs(config, fluence, lanes, dev, warm=2, seed=2**31 + 77):
+    """``(scene, grid, cfg, kw)``: the arguments of ``engine._torch_rounds``
+    in the ``warm + 1``-th megastep of a fresh run of ``config`` with a
+    main-path run's options at ``lanes`` lanes."""
+    from rsmcrt_tpu_torch import kernels
+    from rsmcrt_tpu_torch.transport import engine
+
+    parsed, scene = kernels.setup(ROOT / "perf_bench" / "configs"
+                                  / f"{config}.toml", device=dev)
+    st = parsed.settings
+    cfg = engine.TransportConfig(
+        nphotons=st.nphotons, n_lanes=lanes, record_fluence=fluence,
+        record_emission=True, roulette_bounces=st.roulette_bounces,
+        roulette_chance=st.roulette_chance,
+        **kernels.fast_path_defaults(fluence=fluence, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    carry = engine.init_carry(st.grid, cfg, bank=parsed.detectors)
+    seen = {}
+    real = engine._chained_walk
+
+    def keep(*a, **k):
+        seen["a"], seen["k"] = a, k
+        return real(*a, **k)
+
+    engine._chained_walk = keep
+    try:
+        for _ in range(warm + 1):
+            carry = engine.transport_step(carry, scene, parsed.source,
+                                          st.grid, gen, cfg)
+    finally:
+        engine._chained_walk = real
+    scene, grid, cfg, tables, land_eps, seg_cap = seen["a"]
+    return scene, grid, cfg, dict(seen["k"], tables=tables,
+                                  land_eps=land_eps, seg_cap=seg_cap)
+
+
+def _nbytes(tree) -> int:
+    from rsmcrt_tpu_torch.transport import engine
+
+    live = []
+    engine._tensors(tree, live)
+    return sum(t.numel() * t.element_size() for t in live)
+
+
+def phase_walk(dev, card):
+    """Phase 34: the walk kernel against the rounds in PyTorch on the
+    card, timed.  Returns the 32,768-lane sphere.fluence row for the
+    kernels' record."""
+    from rsmcrt_tpu_torch.transport import engine, walk_kernel
+
+    rows = {}
+    for cell, (config, fluence) in WALK_CELLS.items():
+        for lanes in (N_LANES, 4096):
+            scene, grid, cfg, kw = _walk_inputs(config, fluence, lanes, dev)
+            live = []
+            engine._tensors(kw, live)
+            if not engine._fused_engages(scene, cfg, kw["tables"], live):
+                raise AssertionError(f"{cell}: the fused walk declines")
+            ref = engine._torch_rounds(scene, grid, cfg, **kw)
+            before = walk_kernel.kernel_launches
+            got = engine._fused_walk(scene, grid, cfg, **kw)
+            torch.cuda.synchronize()
+            if walk_kernel.kernel_launches != before + 1:
+                raise AssertionError(f"{cell}: not one kernel launch")
+            what = f"{cell} at {lanes} lanes"
+            B = kw["pos"].shape[0]
+            flipped = torch.zeros(B, dtype=torch.bool, device=dev)
+            for key in WALK_EVENTS:
+                if (ref[key] is None) != (got[key] is None):
+                    raise AssertionError(f"{what}: {key} missing")
+                if ref[key] is not None:
+                    flipped |= (ref[key].reshape(B, -1)
+                                != got[key].reshape(B, -1)).any(-1)
+            n_flip = int(flipped.sum())
+            err, n_bits = 0.0, B - n_flip
+            same = ~flipped
+            for key in WALK_STATE:
+                if (ref[key] is None) != (got[key] is None):
+                    raise AssertionError(f"{what}: {key} missing")
+                if ref[key] is None:
+                    continue
+                r, g = ref[key].reshape(B, -1), got[key].reshape(B, -1)
+                err = max(err, float((r - g).abs().max()))
+                same &= (r == g).all(-1)
+                if not torch.isclose(g, r, rtol=1e-5, atol=1e-6).all():
+                    raise AssertionError(f"{what}: {key} beyond 1e-5")
+            counts = [(int(ref[k]), int(got[k]))
+                      for k in ("n_scat", "n_inter", "n_resp")]
+            bank_err = 0.0
+            if ref["bank"] is not None:
+                for fam, f in ref["bank"].families():
+                    g = getattr(got["bank"], fam).data
+                    rel = float((f.data - g).abs().sum()
+                                / f.data.abs().sum().clamp(min=1e-30))
+                    bank_err = max(bank_err, rel)
+            log(f"[walk] {what}: {n_flip} lanes' events differ, "
+                f"{int(same.sum())} of {B} lanes equal bit for bit, max "
+                f"abs err {err:.3e}, counts (rounds, kernel) {counts}, "
+                f"bank bins off by {bank_err:.3e} of their sum [{card}]")
+            if n_flip or any(a != b for a, b in counts) or bank_err > 1e-3:
+                raise AssertionError(f"{what}: the kernel walks otherwise")
+            args = {}
+            real_walk = walk_kernel.walk
+
+            def keep(*a, **k):
+                args["a"], args["k"] = a, k
+                out = real_walk(*a, **k)
+                args["out"] = dict(out)  # _fused_walk pops the rows
+                return out
+
+            walk_kernel.walk = keep
+            try:
+                engine._fused_walk(scene, grid, cfg, **kw)
+            finally:
+                walk_kernel.walk = real_walk
+            t_k1, t_p1, t_k2, t_p2 = (_time_ms(f, reps=r) for f, r in (
+                (lambda: real_walk(*args["a"], **args["k"]), 20),
+                (lambda: engine._torch_rounds(scene, grid, cfg, **kw), 2),
+                (lambda: real_walk(*args["a"], **args["k"]), 20),
+                (lambda: engine._torch_rounds(scene, grid, cfg, **kw), 2)))
+            # every input the kernel reads once (the uniforms, the lanes,
+            # the respawn candidates, the scene table) and every output
+            # written once
+            uc, lanes_in, respawn = args["a"][8:11]
+            nbytes = _nbytes((uc, lanes_in, respawn, scene.walk_table,
+                              args["out"]))
+            bound = _bound_ms(nbytes)
+            ms = min(t_k1, t_k2)
+            log(f"[walk] {what}: kernel {t_k1:.4f}/{t_k2:.4f} ms, rounds "
+                f"in PyTorch (eager) {t_p1:.2f}/{t_p2:.2f} ms, bound "
+                f"{bound:.4f} ms ({nbytes / 2**20:.1f} MiB), "
+                f"{100 * bound / ms:.1f}% of it [{card}]")
+            rows[(cell, lanes)] = dict(err=err, ms=ms,
+                                       plain_ms=min(t_p1, t_p2),
+                                       bound_ms=bound)
+    return rows[("sphere.fluence", N_LANES)]
+
+
 def phase_probes(dev, card):
     """The two deposit probes against their plain twins at the tools'
     sizes, each timed beside its twin, one ``index_add_`` into a fresh
@@ -3153,6 +3322,9 @@ def main(argv=None) -> int:
                          "and probe kernels and the gradient run whose "
                          "gathers phase 23 times); prints no result line")
     args = ap.parse_args(argv)
+    from rsmcrt_tpu_torch import obs
+    from rsmcrt_tpu_torch.transport import walk_kernel
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
         return 2
@@ -3166,6 +3338,7 @@ def main(argv=None) -> int:
     jmean_rows = deposit["capture_jmean"]["inputs"]
     f64 = phase_kernel_f64(dev, card, jmean_rows)
     probes = phase_probes(dev, card)
+    walk = phase_walk(dev, card)
     box_gathers = []
     if args.kernels_only:
         phase_gradient(dev, card, box_gathers)
@@ -3181,6 +3354,8 @@ def main(argv=None) -> int:
         try:
             # the gate phases run beside the children's CPU runs, the
             # measured runs (sphere, slab, bench path, omg) mostly after
+            walk_kernel.kernel_launches = 0
+            fused0 = obs.counters.get("megastep.walk_fused", 0)
             launches = phase_physics(dev, card)
             phase_card_vs_cpu(dev, tmp, card)
             phase_detectors_card_vs_cpu(dev, tmp, card)
@@ -3211,6 +3386,17 @@ def main(argv=None) -> int:
             launches += _timed("native", phase_native, dev, card)
             launches += _timed("gates", phase_gates, dev, card)
             launches += _timed("dryrun", phase_dryrun, dev, card)
+            # each fused megastep runs the kernel once, replayed from its
+            # walk's CUDA graph or launched from the host
+            walk_launches = (obs.counters.get("megastep.walk_fused", 0)
+                             - fused0)
+            log(f"[walk] the main path's runs ran the walk kernel in "
+                f"{walk_launches} megasteps, {walk_kernel.kernel_launches} "
+                f"of its launches from the host (graph captures and eager "
+                f"walks) [{card}]")
+            if walk_launches <= 0 or walk_kernel.kernel_launches <= 0:
+                raise AssertionError("the main path never took the walk "
+                                     "kernel")
         finally:
             for child in children:
                 child[0].kill()
@@ -3269,6 +3455,20 @@ def main(argv=None) -> int:
         "bound_ms": gather["capture_f32"]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": gather["capture_f32"]["library_ms"],
+    }, {
+        "name": "chained_walk",
+        "route": "cuda",
+        "source": "rsmcrt_tpu_torch/csrc/chained_walk.cu",
+        # the chained walk's lax.fori_loop of array operations
+        "replaces": "rsmcrt_tpu/transport/engine.py:435",
+        "launches": walk_launches,
+        "max_abs_err": walk["err"],
+        "ms": walk["ms"],
+        "plain_ms": walk["plain_ms"],
+        "bound_ms": walk["bound_ms"],
+        "bound_by": "bytes",
+        # no one library call computes the walk
+        "library_ms": None,
     }] + [{
         "name": name,
         "route": "cuda",

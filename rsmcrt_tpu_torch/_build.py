@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
 Every ``*.cu`` file under ``csrc/`` is compiled by its own ``nvcc`` for
-``sm_90a`` (all started together), and the objects are linked into one
+``sm_90a`` (all started together; ``FILE_FLAGS`` adds a source's own
+flags), and the objects are linked into one
 shared library with a plain C interface, loaded with ``ctypes``.  The
 library goes to ``build/rsmcrt_tpu_torch/<hash>/`` at the repository root,
 keyed by a hash of the sources, headers and flags, so a fresh checkout
@@ -27,6 +28,9 @@ BUILD_ROOT = _PKG.parent / "build" / "rsmcrt_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+#: flags of single sources, after ``NVCC_FLAGS``: the chained walk fuses no
+#: multiply-add, so that its lanes follow the PyTorch rounds' roundings
+FILE_FLAGS = {"chained_walk.cu": ["-fmad=false"]}
 
 _lib = None
 build_log = ""  # nvcc's output of the build that produced the library
@@ -51,7 +55,7 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(FILE_FLAGS)).encode())
     for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -71,8 +75,9 @@ def build() -> Path:
     objs = [out.with_name(f"{src.stem}.{tag}.o") for src in srcs]
     tmp = out.with_name(f"{out.name}.{tag}")
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
-                               str(src)], stdout=subprocess.PIPE,
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS,
+                               *FILE_FLAGS.get(src.name, []), "-c", "-o",
+                               str(obj), str(src)], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for src, obj in zip(srcs, objs)]
     logs = [p.communicate()[0] for p in procs]
@@ -134,6 +139,15 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn = lib.rsmcrt_probe_empty
         fn.argtypes = [ptr]
+        fn.restype = ctypes.c_int
+        fn = lib.rsmcrt_chained_walk
+        fn.argtypes = [ptr, ptr]
+        fn.restype = ctypes.c_int
+        fn = lib.rsmcrt_chained_walk_prepare
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+        fn = lib.rsmcrt_chained_walk_arith
+        fn.argtypes = [ptr, i64, ctypes.c_float, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib

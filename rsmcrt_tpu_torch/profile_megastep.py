@@ -158,13 +158,16 @@ def main(argv=None) -> int:
         print(f"[profile]   {us / dev_us:6.1%}  {us / n_prof / 1e3:8.3f} "
               f"ms/megastep  {count[name] / n_prof:7.0f} launches  "
               f"{name[:90]}")
-    # the port's hand-written kernels (csrc/*.cu) are all deposit kernels
-    deposit = [n for n in by_name if "deposit" in n]
-    dep_us = sum(by_name[n] for n in deposit)
-    print(f"[profile] deposit kernels: {dep_us / n_prof / 1e3:.4f} "
-          f"ms/megastep, {dep_us / dev_us:.3%} of device time, "
-          f"{sum(count[n] for n in deposit) / n_prof:.0f} launches per "
-          f"megastep")
+    # the port's hand-written kernels (csrc/*.cu): the deposits and the
+    # chained walk
+    for label, key in (("deposit kernels", "deposit"),
+                       ("walk kernel", "chained_walk")):
+        names = [n for n in by_name if key in n]
+        us = sum(by_name[n] for n in names)
+        print(f"[profile] {label}: {us / n_prof / 1e3:.4f} ms/megastep, "
+              f"{us / dev_us:.3%} of device time, "
+              f"{sum(count[n] for n in names) / n_prof:.0f} launches per "
+              f"megastep")
     for name, row in sorted(obs.summary(snap).items(),
                             key=lambda kv: -kv[1]["self_ms"]):
         print(f"[profile] span {name}: {row['self_ms'] / n_prof:.3f} ms "

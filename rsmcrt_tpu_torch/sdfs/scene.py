@@ -403,8 +403,13 @@ class Scene:
     #: order (what ``surface_normal`` consumes, int32), made here once, as
     #: a copy from the host waits for the card and cannot be captured
     march_cols: tuple = field(init=False, repr=False)
+    #: the table the chained walk's kernel reads (``walk_kernel.pack``),
+    #: made here once for a scene of spheres and boxes with one optical
+    #: table, for the same reason; None for every other scene
+    walk_table: Optional[tuple] = field(init=False, repr=False)
 
     def __post_init__(self):
+        from ..transport import walk_kernel
         from .raycast import analytic_column_mask
 
         self.perm = tuple(int(p) for p in self.perm)
@@ -418,6 +423,9 @@ class Scene:
             torch.as_tensor(na, dtype=torch.long, device=self.device),
             torch.as_tensor([self.perm[i] for i in na], dtype=torch.int32,
                             device=self.device))
+        self.walk_table = (
+            walk_kernel.pack(self) if self.tables.wavelengths is None
+            and walk_kernel.closed_form(self) else None)
 
     @property
     def device(self) -> torch.device:

@@ -20,8 +20,12 @@ A batch of photon lanes advances in lockstep, one *megastep* per
      absorption, surface and in-chain respawn events in place (reference
      update_grids, inttau2.f90:408-445, and kernelsMod.f90:1958-2066);
      without the fluence estimator every round jumps a whole segment
-     (inttau2.f90:446-462).  On a card its kernels are captured once as
-     a CUDA graph and replayed (:func:`_chained_walk`);
+     (inttau2.f90:446-462).  On a card, on a float32 scene of spheres
+     and boxes with one optical table, the K rounds are one hand-written
+     kernel, one thread a lane (:func:`_fused_walk`,
+     :mod:`~rsmcrt_tpu_torch.transport.walk_kernel`); every other walk runs
+     them in PyTorch (:func:`_torch_rounds`).  On a card the walk is
+     captured once as a CUDA graph and replayed (:func:`_chained_walk`);
    - the *plain* walk: one segment a megastep, its first ``dda_substeps``
      voxel intervals from a closed-form merge of the three axes' wall
      crossings (:func:`_closed_form_dda`), or one jump without the
@@ -102,6 +106,7 @@ from ..sdfs.scene import Scene, eval_scene, scene_layer
 from ..sources.sources import Source, n_source_uniforms
 from ..sources.sources import sample as sample_source
 from ..tally import Tallies, zero_tallies
+from . import walk_kernel
 from .deposit import deposit_add_
 from .fresnel import fresnel_coeff, reflect, refract
 from .scatter import hg_logpdf_dg, sample_hg_cost, scatter_direction
@@ -524,13 +529,91 @@ def _segment_probe(scene, pos, dirn, tau_dist, avail_cap, land_eps, eps,
     return rem, hit_tau, land_na | srf_ana, cont, hidx
 
 
-def _chained_dda(scene, grid, cfg: TransportConfig, uc, pos, direction,
-                 weight, tau, seg_rem, seg_interact, seg_srf, seg_cont,
-                 seg_prim, layer, alive, steps, bounces, wavelength, phase,
-                 tables, land_eps, seg_cap, mom_pos, mom_pos2,
-                 bank=None, respawn=None, pmc=None):
+def _chained_dda(scene, grid, cfg: TransportConfig, **walk):
     """DDA walk with in-line scatter, absorption, Fresnel-boundary and
-    respawn chaining.
+    respawn chaining (the arguments of :func:`_torch_rounds`, by name):
+    the hand-written kernel (:func:`_fused_walk`) where
+    :func:`_fused_engages`, otherwise the rounds in PyTorch."""
+    live = []
+    _tensors(walk, live)
+    if _fused_engages(scene, cfg, walk["tables"], live):
+        return _fused_walk(scene, grid, cfg, **walk)
+    return _torch_rounds(scene, grid, cfg, **walk)
+
+
+def _autograd_input(scene, tables, live: list) -> bool:
+    """Whether, under grad mode, an input in ``live`` or a parameter of
+    ``scene`` or ``tables`` requires a gradient."""
+    if not torch.is_grad_enabled():
+        return False
+    params = []
+    _tensors((tables, scene.tables, scene.group_params), params)
+    return any(t.requires_grad for t in live + params)
+
+
+def _fused_engages(scene, cfg: TransportConfig, tables, live: list) -> bool:
+    """Whether the chained walk runs as the hand-written kernel, from what
+    its input shows (``live``: the walk's input tensors): on a card, in
+    float32, on a scene of spheres and boxes alone with one optical table
+    (no wavelengths), with no pMC (``inverse_prim``), escape function or
+    scatter moments, and no autograd input.  The kernel implements that
+    closed set of prim kinds and options; everything else walks in
+    PyTorch (:func:`_torch_rounds`)."""
+    if live[0].device.type != "cuda":
+        return False
+    if (cfg.inverse_prim > 0 or cfg.escape_shape[0] > 0
+            or cfg.record_moments):
+        return False
+    if scene.walk_table is None:
+        return False
+    if tables.kappa.dtype != torch.float32 or any(
+            t.dtype == torch.float64 for t in live):
+        return False
+    return not _autograd_input(scene, tables, live)
+
+
+def _fused_walk(scene, grid, cfg: TransportConfig, uc, pos, direction,
+                weight, tau, seg_rem, seg_interact, seg_srf, seg_cont,
+                seg_prim, layer, alive, steps, bounces, wavelength, phase,
+                tables, land_eps, seg_cap, mom_pos, mom_pos2, bank=None,
+                respawn=None, pmc=None):
+    """:func:`_torch_rounds` as one launch of the walk kernel
+    (:mod:`~rsmcrt_tpu_torch.transport.walk_kernel`; on CPU tensors its CPU
+    twin, which only tests call).  A detector bank tests the rounds' new
+    segments once, all ``B * K`` rows in one :func:`check_bins`, and adds
+    them with one :func:`flush_bins`: the same rows as the per-round tests,
+    summed in another order.  Returns :func:`_torch_rounds`' dict."""
+    dtype = pos.dtype
+    _, _, delta_cross = _scalars(cfg, dtype)
+    lanes = dict(pos=pos, direction=direction, weight=weight, tau=tau,
+                 seg_rem=seg_rem, seg_interact=seg_interact, seg_srf=seg_srf,
+                 seg_cont=seg_cont, seg_prim=seg_prim, layer=layer,
+                 alive=alive, steps=steps, bounces=bounces,
+                 wavelength=wavelength, phase=phase)
+    out = walk_kernel.walk(
+        scene, grid, cfg, land_eps, seg_cap, delta_cross,
+        as_dtype(THRESHOLD, dtype), as_dtype(CHANCE, dtype), uc, lanes,
+        respawn, rows=bank is not None)
+    rows = out.pop("rows")
+    if bank is not None:
+        r_pos, r_dir, r_len, r_w = rows
+        fams = check_bins(bank, r_pos.reshape(-1, 3), r_dir.reshape(-1, 3),
+                          r_len.reshape(-1), r_w.reshape(-1))
+        if fams:
+            bank = flush_bins(bank, {fam: row[:2]
+                                     for fam, row in fams.items()})
+    out.update(mom_pos=mom_pos, mom_pos2=mom_pos2, bank=bank, hit_acc=None,
+               pmc=None)
+    return out
+
+
+def _torch_rounds(scene, grid, cfg: TransportConfig, uc, pos, direction,
+                  weight, tau, seg_rem, seg_interact, seg_srf, seg_cont,
+                  seg_prim, layer, alive, steps, bounces, wavelength, phase,
+                  tables, land_eps, seg_cap, mom_pos, mom_pos2,
+                  bank=None, respawn=None, pmc=None):
+    """The chained walk's K rounds in PyTorch: every scene, option and
+    device (the kernel's closed set on a card goes to :func:`_fused_walk`).
 
     With the fluence estimator on, each of the K rounds deposits the
     interval up to the lane's next voxel wall or segment end; without it
@@ -979,12 +1062,7 @@ def _walk_graph_engages(scene, cfg: TransportConfig, live: list) -> bool:
     autograd graph."""
     if live[0].device.type != "cuda" or cfg.inverse_prim > 0:
         return False
-    if torch.is_grad_enabled():
-        params = []
-        _tensors((scene.tables, scene.group_params), params)
-        if any(t.requires_grad for t in live + params):
-            return False
-    return True
+    return not _autograd_input(scene, scene.tables, live)
 
 
 class _WalkGraph:
@@ -1052,13 +1130,18 @@ def _chained_walk(scene, grid, cfg: TransportConfig, tables, land_eps,
     (:func:`_walk_key`; captured at its first use) where
     :func:`_walk_graph_engages`, otherwise :func:`_chained_dda` run
     eagerly.  Outside :func:`warmup` a capture counts in
-    ``megastep.walk_captures`` and a replay in ``megastep.walk_replays``;
-    every capture adds its recording and instantiation nanoseconds and
-    the bytes its graph's pool reserved to ``megastep.walk_record_ns``,
-    ``megastep.walk_instantiate_ns`` and ``megastep.walk_pool_bytes``, by
-    lane width."""
+    ``megastep.walk_captures`` and a replay in ``megastep.walk_replays``,
+    and a walk that is the hand-written kernel (:func:`_fused_engages`) in
+    ``megastep.walk_fused``; every capture adds its recording and
+    instantiation nanoseconds and the bytes its graph's pool reserved to
+    ``megastep.walk_record_ns``, ``megastep.walk_instantiate_ns`` and
+    ``megastep.walk_pool_bytes``, by lane width."""
     live = []
     structure = _tensors(walk_in, live)
+    if _fused_engages(scene, cfg, tables, live):
+        walk_kernel.prepare(live[0].device)
+        if not _warming:
+            obs.count("megastep.walk_fused")
     if not _walk_graph_engages(scene, cfg, live):
         return _chained_dda(scene, grid, cfg, tables=tables,
                             land_eps=land_eps, seg_cap=seg_cap, **walk_in)
