@@ -63,9 +63,11 @@ Phases (each raises on failure; the exit code is non-zero on any):
     megastep, as in the reference); launches equal the photons asked
     for, the emission sums to them, the tallies are finite and
     non-negative, the fluence volume is written and every deposit went
-    through the kernel.  The walk's CUDA graph (about 330,000 kernel
-    nodes here) is captured in the run: its recording and instantiation
-    seconds and its pool's memory are logged.
+    through the kernel.  The walk kernel declines the marched scene, so
+    the walk's rounds in PyTorch replay from their CUDA graph (about
+    330,000 kernel nodes here), captured in the run: every megastep
+    replays it and none runs the walk kernel; its recording and
+    instantiation seconds and its pool's memory are logged.
 13. omg, card against CPU: res/omg.toml cut to 32^3 and 16,000 photons on
     the card and on the CPU (plain deposits); nscatt/photon, path/photon
     and a coarse fluence profile must agree.  The CPU run takes about as
@@ -223,9 +225,10 @@ Phases (each raises on failure; the exit code is non-zero on any):
     PyTorch run eagerly, and its byte bound (every input read once, every
     output written once).  The main path's runs (phases 4-33) must run
     the walk kernel: its record's launches are the megasteps of those runs
-    that ran it (``megastep.walk_fused``; a replay of the walk's CUDA
-    graph runs it with no launch from the host), and
-    ``walk_kernel.kernel_launches``, reset before them, must count some.
+    that ran it (``megastep.walk_fused``), and each is one launch from the
+    host, so ``walk_kernel.kernel_launches``, reset before them, must
+    equal them plus the launches of phase 10's warm-up (which counts no
+    ``megastep.walk_fused``).
 
 Phase 17's wavelengths are those the run launched: the engine's source
 sampler is wrapped for that run (``_launched_wavelengths``).
@@ -895,11 +898,12 @@ def _bench_bank(dev):
 def phase_fluenceless(dev, card, nphotons=1_000_000):
     """bench.run_fluenceless on the port: sphere scene, bench circle
     detector, 32768 lanes, K = 64, 3 in-chain respawns, no fluence, no
-    emission; cut from the bench's 32M photons to fit the time limit."""
+    emission; cut from the bench's 32M photons to fit the time limit.
+    Returns the walk kernel's launches in its warm-up."""
     from rsmcrt_tpu_torch import kernels
     from rsmcrt_tpu_torch.detectors.detectors import totals
     from rsmcrt_tpu_torch.transport import deposit as dep
-    from rsmcrt_tpu_torch.transport import engine
+    from rsmcrt_tpu_torch.transport import engine, walk_kernel
 
     parsed, scene = kernels.setup(SPHERE, device=dev)
     grid, src = parsed.settings.grid, parsed.source
@@ -910,7 +914,9 @@ def phase_fluenceless(dev, card, nphotons=1_000_000):
         chain_respawns=3)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    warm = walk_kernel.kernel_launches
     engine.warmup(scene, src, grid, gen, cfg, bank=bank, min_lanes=64)
+    warm = walk_kernel.kernel_launches - warm
     gen.manual_seed(1)
     torch.cuda.synchronize()
     dep.reset_counts()
@@ -935,7 +941,7 @@ def phase_fluenceless(dev, card, nphotons=1_000_000):
                              "kernel")
     if float(tl.jmean.abs().sum()) != 0.0:
         raise AssertionError("a fluenceless run recorded fluence")
-    return launched / wall
+    return warm
 
 
 def phase_detectors_card_vs_cpu(dev, tmp, card):
@@ -979,6 +985,9 @@ def phase_omg(dev, tmp, card, n=131_072, max_steps=20):
     graphs = ("megastep.walk_record_ns", "megastep.walk_instantiate_ns",
               "megastep.walk_pool_bytes")
     before = [dict(obs.counters.get(k, {})) for k in graphs]
+    walks = ("megastep.walk_replays", "megastep.walk_fused",
+             "host_loop.megasteps_dispatched")
+    walks0 = [obs.counters.get(k, 0) for k in walks]
     with contextlib.chdir(tmp):  # the run's checkpoint file lands here
         res = kernels.default_MCRT(OMG, data_dir=tmp / "omg", nphotons=n,
                                    verbose=False, device=dev,
@@ -993,7 +1002,11 @@ def phase_omg(dev, tmp, card, n=131_072, max_steps=20):
         f"{peak / 2**20:.1f} MiB, nscatt/photon {res.nscatt_per_photon:.4f}, "
         f"path/photon {float(tl.jmean.double().sum()) / res.launched:.5f}, "
         f"lanes {kernels.default_lanes(n, dev)} [{card}]")
-    log(f"[omg] deposit kernel launches {launches}, plain calls {plain}")
+    replays, fused, dispatched = (obs.counters.get(k, 0) - n
+                                  for k, n in zip(walks, walks0))
+    log(f"[omg] deposit kernel launches {launches}, plain calls {plain}; "
+        f"walk graph replays {replays}, walk kernel megasteps {fused}, of "
+        f"{dispatched} dispatched")
     rec, inst, pool = ({w: n - b.get(w, 0)
                         for w, n in obs.counters.get(k, {}).items()}
                        for k, b in zip(graphs, before))
@@ -1009,6 +1022,8 @@ def phase_omg(dev, tmp, card, n=131_072, max_steps=20):
         raise AssertionError("omg: emission does not count every launch")
     if launches <= 0 or plain != 0:
         raise AssertionError("the omg path did not run the deposit kernel")
+    if replays != dispatched or fused != 0 or dispatched <= 0:
+        raise AssertionError("the omg walk did not replay from its graph")
     if dep.out_of_range_count(dev) != 0:
         raise AssertionError("out-of-range deposits on the omg path")
     if not (tmp / "omg" / "jmean" / "fluence.nrrd").exists():
@@ -2566,7 +2581,7 @@ def phase_walk(dev, card):
             # the respawn candidates, the scene table) and every output
             # written once
             uc, lanes_in, respawn = args["a"][8:11]
-            nbytes = _nbytes((uc, lanes_in, respawn, scene.walk_table,
+            nbytes = _nbytes((uc, lanes_in, respawn, walk_kernel.table(scene),
                               args["out"]))
             bound = _bound_ms(nbytes)
             ms = min(t_k1, t_k2)
@@ -3366,7 +3381,7 @@ def main(argv=None) -> int:
                                          dev, tmp, card)
             launches += exit_launches
             analog = phase_validation(dev, tmp, card, slab)
-            phase_fluenceless(dev, card)
+            warm_walks = phase_fluenceless(dev, card)
             launches += phase_omg(dev, tmp, card)
             phase_omg_card_vs_cpu(card, dev, children[0])
             phase_scenes(dev, tmp, card)
@@ -3386,17 +3401,17 @@ def main(argv=None) -> int:
             launches += _timed("native", phase_native, dev, card)
             launches += _timed("gates", phase_gates, dev, card)
             launches += _timed("dryrun", phase_dryrun, dev, card)
-            # each fused megastep runs the kernel once, replayed from its
-            # walk's CUDA graph or launched from the host
+            # each fused megastep launches the kernel once from the host
             walk_launches = (obs.counters.get("megastep.walk_fused", 0)
                              - fused0)
             log(f"[walk] the main path's runs ran the walk kernel in "
                 f"{walk_launches} megasteps, {walk_kernel.kernel_launches} "
-                f"of its launches from the host (graph captures and eager "
-                f"walks) [{card}]")
-            if walk_launches <= 0 or walk_kernel.kernel_launches <= 0:
-                raise AssertionError("the main path never took the walk "
-                                     "kernel")
+                f"launches from the host ({warm_walks} of them phase 10's "
+                f"warm-up) [{card}]")
+            if walk_launches <= 0 or (walk_kernel.kernel_launches
+                                      != walk_launches + warm_walks):
+                raise AssertionError("the main path's fused megasteps are "
+                                     "not one kernel launch each")
         finally:
             for child in children:
                 child[0].kill()

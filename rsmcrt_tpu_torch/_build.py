@@ -143,9 +143,6 @@ def load() -> ctypes.CDLL:
         fn = lib.rsmcrt_chained_walk
         fn.argtypes = [ptr, ptr]
         fn.restype = ctypes.c_int
-        fn = lib.rsmcrt_chained_walk_prepare
-        fn.argtypes = []
-        fn.restype = ctypes.c_int
         fn = lib.rsmcrt_chained_walk_arith
         fn.argtypes = [ptr, i64, ctypes.c_float, ptr, ptr, ptr]
         fn.restype = ctypes.c_int

@@ -79,13 +79,6 @@ extern "C" int64_t rsmcrt_chained_walk_args_size() {
   return (int64_t)sizeof(rsmcrt_walk::WalkArgs);
 }
 
-// Loads the kernel's module, so that a CUDA graph capture never has to.
-// Returns the CUDA error.
-extern "C" int rsmcrt_chained_walk_prepare() {
-  cudaFuncAttributes attr;
-  return (int)cudaFuncGetAttributes(&attr, chained_walk_kernel);
-}
-
 // One walk of a.B lanes on `stream`; a.o_counts must hold zeros (the
 // kernel adds to it).  Returns cudaGetLastError() after the launch.
 extern "C" int rsmcrt_chained_walk(const rsmcrt_walk::WalkArgs* a,

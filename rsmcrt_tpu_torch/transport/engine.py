@@ -15,17 +15,17 @@ A batch of photon lanes advances in lockstep, one *megastep* per
 2. **Walk**, one of two, chosen as the reference chooses
    (:meth:`TransportConfig.chains`):
 
-   - the *chained* walk (:func:`_chained_dda`): every lane walks up to
+   - the *chained* walk (:func:`_chained_walk`): every lane walks up to
      ``dda_substeps`` voxel-wall intervals, consuming scatter,
      absorption, surface and in-chain respawn events in place (reference
      update_grids, inttau2.f90:408-445, and kernelsMod.f90:1958-2066);
      without the fluence estimator every round jumps a whole segment
      (inttau2.f90:446-462).  On a card, on a float32 scene of spheres
-     and boxes with one optical table, the K rounds are one hand-written
-     kernel, one thread a lane (:func:`_fused_walk`,
+     and boxes with one optical table, the K rounds are one launch of a
+     hand-written kernel, one thread a lane (:func:`_fused_walk`,
      :mod:`~rsmcrt_tpu_torch.transport.walk_kernel`); every other walk runs
-     them in PyTorch (:func:`_torch_rounds`).  On a card the walk is
-     captured once as a CUDA graph and replayed (:func:`_chained_walk`);
+     them in PyTorch (:func:`_torch_rounds`), on a card without pMC or
+     autograd replayed from a CUDA graph (:func:`_chained_walk`);
    - the *plain* walk: one segment a megastep, its first ``dda_substeps``
      voxel intervals from a closed-form merge of the three axes' wall
      crossings (:func:`_closed_form_dda`), or one jump without the
@@ -529,18 +529,6 @@ def _segment_probe(scene, pos, dirn, tau_dist, avail_cap, land_eps, eps,
     return rem, hit_tau, land_na | srf_ana, cont, hidx
 
 
-def _chained_dda(scene, grid, cfg: TransportConfig, **walk):
-    """DDA walk with in-line scatter, absorption, Fresnel-boundary and
-    respawn chaining (the arguments of :func:`_torch_rounds`, by name):
-    the hand-written kernel (:func:`_fused_walk`) where
-    :func:`_fused_engages`, otherwise the rounds in PyTorch."""
-    live = []
-    _tensors(walk, live)
-    if _fused_engages(scene, cfg, walk["tables"], live):
-        return _fused_walk(scene, grid, cfg, **walk)
-    return _torch_rounds(scene, grid, cfg, **walk)
-
-
 def _autograd_input(scene, tables, live: list) -> bool:
     """Whether, under grad mode, an input in ``live`` or a parameter of
     ``scene`` or ``tables`` requires a gradient."""
@@ -558,13 +546,13 @@ def _fused_engages(scene, cfg: TransportConfig, tables, live: list) -> bool:
     (no wavelengths), with no pMC (``inverse_prim``), escape function or
     scatter moments, and no autograd input.  The kernel implements that
     closed set of prim kinds and options; everything else walks in
-    PyTorch (:func:`_torch_rounds`)."""
+    PyTorch (:func:`_torch_rounds`).  Nothing else makes this choice."""
     if live[0].device.type != "cuda":
         return False
     if (cfg.inverse_prim > 0 or cfg.escape_shape[0] > 0
             or cfg.record_moments):
         return False
-    if scene.walk_table is None:
+    if tables.wavelengths is not None or not walk_kernel.closed_form(scene):
         return False
     if tables.kappa.dtype != torch.float32 or any(
             t.dtype == torch.float64 for t in live):
@@ -990,19 +978,25 @@ def _torch_rounds(scene, grid, cfg: TransportConfig, uc, pos, direction,
 
 
 # ---------------------------------------------------------------------------
-# The chained walk replayed from a CUDA graph
+# The chained walk's paths: the kernel, the rounds replayed from a CUDA
+# graph, the rounds run eagerly
 # ---------------------------------------------------------------------------
 
+#: the chained walk's rounds in PyTorch, run eagerly, as
+#: :func:`_chained_walk` and a walk graph's capture call them (through this
+#: name, so that a wrapper on it sees every such walk)
+_chained_dda = _torch_rounds
+
 #: the most walk graphs kept, least recently used dropped first.  A run
-#: replays one a width of its shrink ladder (two in every benchmark cell,
-#: three from 262,144 lanes); a process that builds many scenes, as the
-#: tests and ``chip_smoke.py`` do, keeps the graphs of the last few, and
-#: 16 pools of at most 158 MiB each (the largest measured, PERF.md) hold
-#: under 3% of an 80-GB card
+#: replays one a width of its shrink ladder (two or three); a process that
+#: builds many scenes, as the tests and ``chip_smoke.py`` do, keeps the
+#: graphs of the last few.  At 32,768 lanes the rounds' pool measured
+#: 72 MiB on omg and 156-158 MiB on the benchmark's sphere and slab with the
+#: kernel turned off (H100), so 16 pools hold about 3% of an 80-GB card
 WALK_GRAPHS_KEPT = 16
 #: the captured walks, by :func:`_walk_key`
 walk_graphs: collections.OrderedDict = collections.OrderedDict()
-# set by :func:`warmup`: its captures and replays are set-up, not counted
+# set by :func:`warmup`: what it walks is set-up, not counted
 _warming = False
 
 
@@ -1055,18 +1049,23 @@ def _walk_key(scene, grid, cfg: TransportConfig, tables, land_eps, seg_cap,
             structure)
 
 
-def _walk_graph_engages(scene, cfg: TransportConfig, live: list) -> bool:
-    """Whether the chained walk replays from a CUDA graph, given its input
-    tensors ``live``: on a card, with no pMC tangents (``inverse_prim``:
-    ``torch.func`` through the walk) and no input or scene parameter in an
-    autograd graph."""
-    if live[0].device.type != "cuda" or cfg.inverse_prim > 0:
-        return False
-    return not _autograd_input(scene, scene.tables, live)
+def _walk_path(scene, cfg: TransportConfig, tables, live: list) -> str:
+    """Which path the chained walk takes, given its input tensors
+    ``live``: ``"kernel"`` where :func:`_fused_engages`; ``"graph"``, the
+    rounds in PyTorch replayed from a CUDA graph, elsewhere on a card with
+    no pMC tangents (``inverse_prim``: ``torch.func`` through the walk) and
+    no input or scene parameter in an autograd graph; ``"eager"``
+    otherwise."""
+    if _fused_engages(scene, cfg, tables, live):
+        return "kernel"
+    if (live[0].device.type == "cuda" and cfg.inverse_prim == 0
+            and not _autograd_input(scene, scene.tables, live)):
+        return "graph"
+    return "eager"
 
 
 class _WalkGraph:
-    """One capture of :func:`_chained_dda`: the walk recorded once on
+    """One capture of :func:`_chained_dda`: the rounds recorded once on
     static copies of its inputs, then replayed.  A call copies the live
     inputs into the static ones, replays on the current stream and copies
     the outputs out into fresh tensors, so nothing it returns aliases a
@@ -1125,24 +1124,26 @@ class _WalkGraph:
 
 def _chained_walk(scene, grid, cfg: TransportConfig, tables, land_eps,
                   seg_cap, **walk_in):
-    """The chained walk of one megastep (:func:`_chained_dda`'s arguments
-    by name): replayed from the CUDA graph of its key
-    (:func:`_walk_key`; captured at its first use) where
-    :func:`_walk_graph_engages`, otherwise :func:`_chained_dda` run
-    eagerly.  Outside :func:`warmup` a capture counts in
-    ``megastep.walk_captures`` and a replay in ``megastep.walk_replays``,
-    and a walk that is the hand-written kernel (:func:`_fused_engages`) in
-    ``megastep.walk_fused``; every capture adds its recording and
+    """The chained walk of one megastep (:func:`_torch_rounds`' arguments
+    by name), by the path :func:`_walk_path` picks: ``kernel``, one launch
+    of the hand-written kernel (:func:`_fused_walk`), counted in
+    ``megastep.walk_fused``; ``graph``, the rounds replayed from the CUDA
+    graph of its key (:func:`_walk_key`; captured at its first use), a
+    capture counted in ``megastep.walk_captures`` and a replay in
+    ``megastep.walk_replays``; ``eager``, :func:`_chained_dda`.  None
+    counts inside :func:`warmup`, but every capture adds its recording and
     instantiation nanoseconds and the bytes its graph's pool reserved to
     ``megastep.walk_record_ns``, ``megastep.walk_instantiate_ns`` and
     ``megastep.walk_pool_bytes``, by lane width."""
     live = []
     structure = _tensors(walk_in, live)
-    if _fused_engages(scene, cfg, tables, live):
-        walk_kernel.prepare(live[0].device)
+    path = _walk_path(scene, cfg, tables, live)
+    if path == "kernel":
         if not _warming:
             obs.count("megastep.walk_fused")
-    if not _walk_graph_engages(scene, cfg, live):
+        return _fused_walk(scene, grid, cfg, tables=tables,
+                           land_eps=land_eps, seg_cap=seg_cap, **walk_in)
+    if path == "eager":
         return _chained_dda(scene, grid, cfg, tables=tables,
                             land_eps=land_eps, seg_cap=seg_cap, **walk_in)
     key = _walk_key(scene, grid, cfg, tables, land_eps, seg_cap, structure)
@@ -1966,11 +1967,12 @@ def warmup(scene: Scene, source: Source, grid: CartGrid,
            min_lanes: int = 4096):
     """Build the CUDA kernels (on a CUDA scene) and run one megastep at
     every wavefront width of the shrink ladder, so a timed run pays no
-    build, no first-use allocation and no capture: where the chained walk
-    replays from a CUDA graph (:func:`_walk_graph_engages`), each width's
-    megastep captures its walk's graph and replays it, and these count in
-    no ``megastep.walk_*`` counter.  Leaves no tally behind and the
-    caller's bank as it was.  A ``setup.warmup`` span."""
+    build, no first-use allocation and no capture.  Each width's walk
+    takes its path (:func:`_chained_walk`): the kernel's first launch
+    makes the scene's table (:func:`walk_kernel.table`); the graph path
+    captures its width's graph and replays it; neither counts a walk, a
+    capture or a replay.  Leaves no tally behind and the caller's bank as
+    it was.  A ``setup.warmup`` span."""
     global _warming
     cfg.check_ported()
     on_card = scene.device.type == "cuda"

@@ -13,8 +13,8 @@ on a card (:func:`~rsmcrt_tpu_torch.transport.engine._fused_engages`); the
 CPU twin exists for the tests that hold the kernel's arithmetic against
 the PyTorch rounds, lane by lane.
 
-:func:`pack` makes the scene's table, once a scene
-(``Scene.walk_table``).  :func:`arith` runs the two operations whose order
+:func:`table` makes the scene's table at its first walk (:func:`pack`;
+``Scene.walk_table``).  :func:`arith` runs the two operations whose order
 follows PyTorch's own kernels, for the tests that hold them against the
 installed PyTorch.
 """
@@ -96,10 +96,19 @@ def closed_form(scene) -> bool:
 # The scene table
 # ---------------------------------------------------------------------------
 
+def table(scene):
+    """``scene``'s table (:func:`pack`), made at its first walk and kept in
+    its slot ``walk_table``; a scene made by ``dataclasses.replace`` starts
+    with an empty slot and makes its own."""
+    if scene.walk_table is None:
+        scene.walk_table = pack(scene)
+    return scene.walk_table
+
+
 def pack(scene):
-    """``(prim_f, prim_i, opt)`` of ``scene`` on its device, which
-    :class:`~rsmcrt_tpu_torch.sdfs.scene.Scene` makes once as its
-    ``walk_table`` (a copy from the host cannot be captured):
+    """``(prim_f, prim_i, opt)`` of ``scene`` on its device (it copies from
+    the host, so it waits for the card: :func:`table` makes it once a
+    scene):
     ``prim_f [N, 20]`` float32, each prim's inverse transform and radius or
     half lengths in concatenated-group order; ``prim_i [3 N]`` int32, each
     column's kind and user-order prim, then each user-order prim's column;
@@ -180,31 +189,19 @@ def host_library() -> ctypes.CDLL:
     return _host
 
 
-_prepared: set = set()
+_checked = None
 
 
-def _card_library(dev: torch.device):
-    """The kernel library (``_build.load``), its layout checked and the
-    kernel's module loaded on ``dev`` once (what a capture cannot do)."""
+def _card_library():
+    """The kernel library (``_build.load``), its layout checked once."""
+    global _checked
     from .. import _build
 
     lib = _build.load()
-    if dev not in _prepared:
+    if lib is not _checked:
         _check_layout(lib)
-        with torch.cuda.device(dev):
-            rc = lib.rsmcrt_chained_walk_prepare()
-        if rc != 0:
-            raise RuntimeError(f"loading the walk kernel failed: CUDA error "
-                               f"{rc}")
-        _prepared.add(dev)
+        _checked = lib
     return lib
-
-
-def prepare(dev: torch.device):
-    """Loads the kernel on ``dev``, if a card, as a CUDA graph must find it
-    before it captures a walk."""
-    if dev.type == "cuda":
-        _card_library(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +224,7 @@ def walk(scene, grid: CartGrid, cfg, land_eps: float, seg_cap: float,
          delta_cross: float, thr: float, ch: float, uc, lanes: dict,
          respawn, rows: bool) -> dict:
     """One chained walk of ``cfg.dda_substeps`` rounds on ``scene``'s
-    ``walk_table``.  ``lanes`` holds the walk's lane tensors by the names
+    :func:`table`.  ``lanes`` holds the walk's lane tensors by the names
     of ``_torch_rounds`` (``pos``, ``direction``, ``weight``, ...),
     ``respawn`` its candidates or None; with ``rows`` each round's new
     segments come back as ``rows = (pos [B, K, 3], dir [B, K, 3], len [B,
@@ -278,7 +275,7 @@ def walk(scene, grid: CartGrid, cfg, land_eps: float, seg_cap: float,
     keep += [t.contiguous() for t in respawn or ()]
     for name, t in zip(_LANES + _RESPAWN, keep):
         setattr(a, name, _ptr(t))
-    a.prim_f, a.prim_i, a.opt = map(_ptr, scene.walk_table)
+    a.prim_f, a.prim_i, a.opt = map(_ptr, table(scene))
     for name in _OUTS:
         setattr(a, "o_" + name, _ptr(out[name]))
     a.B, a.K, a.C = B, K, C
@@ -301,7 +298,7 @@ def walk(scene, grid: CartGrid, cfg, land_eps: float, seg_cap: float,
     a.roulette_chance = float(ft(cfg.roulette_chance))
 
     if dev.type == "cuda":
-        lib = _card_library(dev)
+        lib = _card_library()
         with torch.cuda.device(dev):
             err = lib.rsmcrt_chained_walk(
                 ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
@@ -333,7 +330,7 @@ def arith(x, s: float):
     sums = torch.empty(n, dtype=torch.float32, device=x.device)
     quots = torch.empty_like(sums)
     if x.device.type == "cuda":
-        lib = _card_library(x.device)
+        lib = _card_library()
         with torch.cuda.device(x.device):
             err = lib.rsmcrt_chained_walk_arith(
                 x.data_ptr(), n, s, sums.data_ptr(), quots.data_ptr(),

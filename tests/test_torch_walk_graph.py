@@ -1,15 +1,17 @@
 """The chained walk replayed from a CUDA graph (``engine._chained_walk``).
 
-On a card the walk of a megastep (``_chained_dda``, K chain rounds of a few
-hundred kernels each) is captured once for each key and replayed.  Here on
-the CPU:
+On a card, where the hand-written kernel declines the walk (a scene not
+of spheres and boxes, spectral tables, float64, escape functions,
+moments), the walk of a megastep (``_chained_dda``, K rounds in PyTorch of
+a few hundred kernels each) is captured once for each key and replayed.
+Here on the CPU:
 
 - the key ignores what changes from job to job (photons, megastep cap,
   seed) and tells apart the lane width, the type, the device, the scene,
   the grid, every transport option and the detector bank's shape;
-- the graph engages only on a card, with no pMC tangents and no input
-  or scene parameter in an autograd graph; every CPU run walks eagerly
-  and replays nothing;
+- the graph engages only on a card, outside the kernel's set, with no
+  pMC tangents and no input or scene parameter in an autograd graph;
+  every CPU run walks eagerly and replays nothing;
 - neither the walk nor the rest of a megastep reads from the host or
   builds a tensor from host data (what a capture cannot record, and a
   synchronisation on a card), on the benchmark's three configurations and
@@ -18,7 +20,9 @@ the CPU:
   has not seen end, and ``parallel.mesh``'s shards take turns there rather
   than wait on one card while another could take work (stub events).
 
-The ``cuda`` tests hold the graph against the eager walk on the card:
+The ``cuda`` tests hold the graph against the eager walk on the card, on
+the benchmark's configurations with the kernel turned off, and check that
+neither the graphed nor the kernel's megastep synchronises:
 
     python -m pytest --noconftest -o addopts="" -m cuda \\
         tests/test_torch_walk_graph.py
@@ -202,28 +206,36 @@ def test_tensors_and_rebuild_round_trip(slab):
 
 def _card_tensor(requires_grad=False):
     return SimpleNamespace(device=torch.device("cuda", 0),
-                           requires_grad=requires_grad)
+                           dtype=torch.float32, requires_grad=requires_grad)
+
+
+def _path(scene, cfg, live):
+    return te._walk_path(scene, cfg, scene.tables, live)
 
 
 def test_graph_engages_only_where_it_can():
-    """On a card, with no pMC and no autograd input or scene parameter
-    (the inputs stand in for card tensors)."""
-    _, scene = _setup("vdh_slab")
+    """On a card, on a scene the kernel declines (the torus), with no pMC
+    and no autograd input or scene parameter (the inputs stand in for card
+    tensors); the kernel's set (the slab) launches the kernel instead."""
+    scene = _scene_kinds()["torus"]
     cfg = te.TransportConfig(nphotons=100, chain_scatter=True)
     live = [_card_tensor(), _card_tensor()]
-    assert te._walk_graph_engages(scene, cfg, live)
+    assert _path(scene, cfg, live) == "graph"
     cpu = [torch.zeros(2)]
-    assert not te._walk_graph_engages(scene, cfg, cpu)
-    assert not te._walk_graph_engages(
-        scene, dataclasses.replace(cfg, inverse_prim=1), live)
+    assert _path(scene, cfg, cpu) == "eager"
+    assert _path(scene, dataclasses.replace(cfg, inverse_prim=1),
+                 live) == "eager"
     grad = [_card_tensor(), _card_tensor(requires_grad=True)]
-    assert not te._walk_graph_engages(scene, cfg, grad)
+    assert _path(scene, cfg, grad) == "eager"
     with torch.no_grad():
-        assert te._walk_graph_engages(scene, cfg, grad)
+        assert _path(scene, cfg, grad) == "graph"
     mua = scene.tables.mua.clone().requires_grad_(True)
     sc = dataclasses.replace(scene, tables=dataclasses.replace(
         scene.tables, mua=mua))
-    assert not te._walk_graph_engages(sc, cfg, live)
+    assert _path(sc, cfg, live) == "eager"
+    _, slab = _setup("vdh_slab")
+    assert _path(slab, cfg, live) == "kernel"
+    assert _path(slab, cfg, cpu) == "eager"
 
 
 @pytest.mark.parametrize("case", ["cpu", "grad", "inverse"])
@@ -530,13 +542,15 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-_ENGAGES = te._walk_graph_engages
+_PATH = te._walk_path
 
 
 def _eager(monkeypatch, on):
-    """Walk eagerly (``on``) or from the graph where it engages."""
-    monkeypatch.setattr(te, "_walk_graph_engages",
-                        lambda *a: not on and _ENGAGES(*a))
+    """The walk's rounds in PyTorch, the kernel turned off: eagerly
+    (``on``) or replayed from the graph."""
+    monkeypatch.setattr(te, "_fused_engages", lambda *a: False)
+    monkeypatch.setattr(te, "_walk_path",
+                        lambda *a: "eager" if on else _PATH(*a))
 
 
 def _fields(carry):
@@ -573,11 +587,11 @@ def _flat(tree):
 @pytest.mark.parametrize("cell", sorted(CELLS))
 def test_card_graph_megastep_equals_the_eager_one(monkeypatch, cuda_device,
                                                   cell, lanes):
-    """With injected draws, a graphed megastep's lanes equal the eager
-    one's bit for bit, and so do its deposit rows; its tallies and bins
-    agree to the atomics' order.  Twice: the capture's own replay (after
-    eager megasteps), then a replay on other inputs (after replayed
-    ones)."""
+    """With injected draws and the kernel turned off, a graphed megastep's
+    lanes equal the eager one's bit for bit, and so do its deposit rows;
+    its tallies and bins agree to the atomics' order.  Twice: the
+    capture's own replay (after eager megasteps), then a replay on other
+    inputs (after replayed ones)."""
     config, fluence = CELLS[cell]
     parsed, scene = _setup(config, cuda_device)
     st = parsed.settings
@@ -624,11 +638,11 @@ def test_card_graph_megastep_equals_the_eager_one(monkeypatch, cuda_device,
 @pytest.mark.parametrize("cell", sorted(CELLS))
 def test_card_graphed_job_equals_the_eager_job(monkeypatch, cuda_device,
                                                cell):
-    """A small whole job with one seed: graphed and eager launch and count
-    alike and their tallies agree to float32 rounding of the atomics'
-    order.  Then ``engine.warmup`` captures what a job needs: a job after
-    it, with another seed and photon count, captures nothing and replays
-    every walk."""
+    """The kernel turned off, a small whole job with one seed: graphed and
+    eager launch and count alike and their tallies agree to float32
+    rounding of the atomics' order.  Then ``engine.warmup`` captures what a
+    job needs: a job after it, with another seed and photon count,
+    captures nothing and replays every walk."""
     config, fluence = CELLS[cell]
     parsed, scene = _setup(config, cuda_device)
     st = parsed.settings
@@ -647,6 +661,7 @@ def test_card_graphed_job_equals_the_eager_job(monkeypatch, cuda_device,
         else:
             assert torch.equal(a, b)
     te.walk_graphs.clear()
+    _eager(monkeypatch, False)
     cfg = _cfg(parsed, scene, fluence, 32768, nphotons=st.nphotons)
     te.warmup(scene, parsed.source, st.grid,
               torch.Generator(device=cuda_device).manual_seed(1), cfg,
@@ -661,11 +676,19 @@ def test_card_graphed_job_equals_the_eager_job(monkeypatch, cuda_device,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("path", ["graph", "kernel"])
 @pytest.mark.parametrize("cell", sorted(CELLS))
-def test_card_graphed_megastep_does_not_synchronise(cuda_device, cell):
-    """Once captured, a megastep (analysis, replayed walk, deposits,
-    interactions) makes no host synchronisation."""
+def test_card_graphed_megastep_does_not_synchronise(monkeypatch, cuda_device,
+                                                    cell, path):
+    """After its first megasteps, a megastep (analysis, walk, deposits,
+    interactions) makes no host synchronisation, so the host runs up to
+    ``IN_FLIGHT`` megasteps ahead: with the walk replayed from its graph
+    (the kernel turned off) and with the kernel launched directly (the
+    cells' own path, no graph)."""
     config, fluence = CELLS[cell]
+    te.walk_graphs.clear()
+    if path == "graph":
+        _eager(monkeypatch, False)
     parsed, scene = _setup(config, cuda_device)
     st = parsed.settings
     cfg = _cfg(parsed, scene, fluence, 4096, nphotons=st.nphotons)
@@ -683,4 +706,9 @@ def test_card_graphed_megastep_does_not_synchronise(cuda_device, cell):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize(cuda_device)
-    assert obs.counters["megastep.walk_replays"] == 4
+    if path == "graph":
+        assert obs.counters["megastep.walk_replays"] == 4
+    else:
+        assert obs.counters["megastep.walk_fused"] == 4
+        assert "megastep.walk_replays" not in obs.counters
+        assert not te.walk_graphs

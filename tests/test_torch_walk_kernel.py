@@ -20,10 +20,12 @@ PyTorch rounds on the same inputs and uniforms:
   and so do a detector bank's bins.
 
 The dispatch (``engine._fused_engages``) engages on the four cells'
-scenes and options on a card and declines everything else; the counter
-``megastep.walk_fused`` counts one a dispatched fused megastep and none in
-``engine.warmup``.  The ``cuda`` tests hold the kernel against the PyTorch
-rounds on the card:
+scenes and options on a card and declines everything else; there the
+megastep launches the kernel directly, with no CUDA graph around it; the
+counter ``megastep.walk_fused`` counts one a dispatched fused megastep and
+none in ``engine.warmup``; the scene's table is made once, at its first
+walk.  The ``cuda`` tests hold the kernel against the PyTorch rounds on the
+card:
 
     python -m pytest --noconftest -o addopts="" -m cuda \\
         tests/test_torch_walk_kernel.py
@@ -336,12 +338,83 @@ def test_walk_fused_counts_dispatched_megasteps(monkeypatch):
     assert walk_kernel.host_calls - calls == len(dispatched)
 
 
-def test_scene_table_is_made_once():
-    """The scene makes its table with itself (``Scene.walk_table``): a
-    replaced scene gets its own, and a scene the kernel does not walk
-    gets none."""
-    _, scene = _setup("vdh_slab")
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports the card as its device: the walk's
+    dispatch then sees card inputs."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("inputs", ["card", "forced twin"])
+def test_kernel_megastep_builds_no_graph(monkeypatch, inputs):
+    """On the kernel's set the walk launches the kernel (here its CPU
+    twin) directly: no ``_WalkGraph`` is built, ``walk_graphs`` stays
+    empty, ``megastep.walk_fused`` counts the walks and nothing counts a
+    capture or a replay.  ``card``: one walk whose inputs stand for card
+    tensors, through the real dispatch; ``forced twin``: whole megasteps
+    with ``_fused_engages`` always true."""
+    built = []
+    monkeypatch.setattr(te, "_WalkGraph",
+                        lambda *a, **k: built.append(a) or (lambda live: None))
+    te.walk_graphs.clear()
+    calls = walk_kernel.host_calls
+    if inputs == "card":
+        scene, grid, cfg, kw = _walk_inputs("slab.detect", "cpu", 256,
+                                            seed=2**31 + 23)
+        obs.reset()
+        uc, real_walk = kw["uc"], walk_kernel.walk
+        kw["uc"] = uc.as_subclass(_OnCard)
+
+        def twin(*a, **k):
+            assert a[8] is kw["uc"]
+            return real_walk(*a[:8], uc, *a[9:], **k)
+
+        monkeypatch.setattr(walk_kernel, "walk", twin)
+        outs = [te._chained_walk(scene, grid, cfg, **kw)]
+    else:
+        parsed, scene = _setup("vdh_slab")
+        monkeypatch.setattr(te, "_fused_engages", lambda *a: True)
+        cfg = _cfg(parsed, False, 256, 3, nphotons=2000)
+        dispatched = []
+        real = te.transport_step
+        monkeypatch.setattr(te, "transport_step", lambda *a, **k:
+                            dispatched.append(1) or real(*a, **k))
+        te.simulate(scene, parsed.source, parsed.settings.grid,
+                    torch.Generator().manual_seed(5), cfg,
+                    bank=parsed.detectors)
+        outs = dispatched
+    assert built == [] and not te.walk_graphs
+    walks = len(outs)
+    assert walk_kernel.host_calls - calls == walks > 0
+    assert obs.counters["megastep.walk_fused"] == walks
+    assert "megastep.walk_replays" not in obs.counters
+    assert "megastep.walk_captures" not in obs.counters
+
+
+def test_scene_table_is_made_once(monkeypatch):
+    """The kernel's table of a scene (``walk_kernel.table``) is made at
+    the scene's first walk and kept: later megasteps make none; a replaced
+    scene gets its own; the torus and spectral scenes, which the kernel
+    does not walk, get none."""
+    parsed, scene = _setup("vdh_slab")
+    assert scene.walk_table is None
+    packed = []
+    real = walk_kernel.pack
+    monkeypatch.setattr(walk_kernel, "pack",
+                        lambda sc: packed.append(sc) or real(sc))
+    monkeypatch.setattr(te, "_fused_engages", lambda *a: True)
+    st = parsed.settings
+    cfg = _cfg(parsed, False, 256, 3, nphotons=5000)
+    gen = torch.Generator().manual_seed(3)
+    carry = te.init_carry(st.grid, cfg, bank=parsed.detectors)
+    for _ in range(3):
+        carry = te.transport_step(carry, scene, parsed.source, st.grid, gen,
+                                  cfg)
+    assert len(packed) == 1 and packed[0] is scene
     first = scene.walk_table
+    assert walk_kernel.table(scene) is first
     prim_f, prim_i, opt = first
     assert prim_f.shape == (2, walk_kernel.PRIM_FLOATS)
     assert prim_i.tolist() == [1, 0, 1, 1, 0, 1]
@@ -349,15 +422,21 @@ def test_scene_table_is_made_once():
     torch.testing.assert_close(prim_f[0, 16:19],
                                torch.tensor([50.0, 50.0, 0.01]))
     other = dataclasses.replace(scene)
-    assert other.walk_table is not first
+    assert other.walk_table is None
+    assert walk_kernel.table(other) is not first
     for a, b in zip(other.walk_table, first):
         assert torch.equal(a, b)
+    assert len(packed) == 2
     mua = scene.tables.mua.clone().requires_grad_(True)
     graded = dataclasses.replace(scene, tables=dataclasses.replace(
         scene.tables, mua=mua))
-    assert not any(t.requires_grad for t in graded.walk_table)
-    assert _torus_scene().walk_table is None
-    assert _spectral_scene().walk_table is None
+    assert not any(t.requires_grad for t in walk_kernel.table(graded))
+    monkeypatch.undo()
+    cfg = te.TransportConfig(nphotons=100, chain_scatter=True,
+                             dda_substeps=K)
+    for sc in (_torus_scene(), _spectral_scene()):
+        assert not te._fused_engages(sc, cfg, sc.tables, [_card()])
+        assert sc.walk_table is None
 
 
 def _arith_inputs(device, n=1 << 16):
@@ -403,6 +482,7 @@ def cuda_device():
 @pytest.mark.parametrize("cell", sorted(CELLS))
 def test_card_kernel_walks_the_lanes_of_the_pytorch_rounds(
         cuda_device, cell, lanes):
+    te.walk_graphs.clear()
     scene, grid, cfg, kw = _walk_inputs(cell, cuda_device, lanes,
                                         seed=2**32 + 11)
     live = []
@@ -410,9 +490,10 @@ def test_card_kernel_walks_the_lanes_of_the_pytorch_rounds(
     assert te._fused_engages(scene, cfg, kw["tables"], live)
     ref = te._torch_rounds(scene, grid, cfg, **kw)
     launches = walk_kernel.kernel_launches
-    got = te._chained_dda(scene, grid, cfg, **kw)
+    got = te._chained_walk(scene, grid, cfg, **kw)
     torch.cuda.synchronize(cuda_device)
     assert walk_kernel.kernel_launches == launches + 1
+    assert not te.walk_graphs
     n_flip, n_loose = _compare(ref, got, lanes)
     _check_bank(ref, got, n_flip)
     print(f"{cell} {lanes}: {n_flip} flipped, {n_loose} beyond 1e-5, "
